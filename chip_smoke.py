@@ -9,7 +9,8 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the deblock kernel from csrc/deblock.cu with nvcc;
   3. each kernel against its plain PyTorch version on the card, exact
-     equality, and both timed with CUDA events;
+     equality, on many grids and in 50 repeats, and both timed with
+     CUDA events;
   4. the main path: DeviceSessionEncoder(device="cuda").encode_stream on
      16 frames of synthetic 720p content in two configs, 3 timed runs
      each (frames/s), the kernels' launch counts over exactly each run,
@@ -140,32 +141,12 @@ def deblock_bound_ms(mbw, mbh, BSV, BSH):
                                  else "operations"), nbytes, ops
 
 
-def phase_kernels(dev):
-    """Kernel vs plain on the card: random bS/QP on the (6,5), (4,7),
-    (9,3) and 80x45 MB grids (random and blocky planes), and one
-    deblock-idc-2 frame (band-top MB rows with zeroed bS). The kernel
-    filters its planes in place, so it always gets clones."""
+def idc2_inputs(dev):
+    """The main path's deblock at 720p: 80x45 MBs, bS from random
+    encoder symbols with the band tops of 4 slices zeroed (deblock idc
+    2), blocky planes, QP 33 / chroma QP 31."""
     import torch
-    from openh264_tpu_torch.encoder import deblock_cuda, deblock_torch
-    results = []
-    max_err = 0
-    for mbw, mbh, seed, blocky in [(6, 5, 0, False), (4, 7, 1, False),
-                                   (9, 3, 2, False), (80, 45, 3, False),
-                                   (80, 45, 6, True)]:
-        args = deblock_inputs(mbw, mbh, seed, dev, blocky)
-        want = deblock_torch.deblock_frame_device(*args, mbw, mbh)
-        got = deblock_cuda.deblock_frame_cuda(
-            *[t.clone() for t in args], mbw, mbh)
-        torch.cuda.synchronize()
-        err = max(int((g.int() - w.int()).abs().max()) for g, w in
-                  zip(got, want))
-        eq = all(torch.equal(g, w) for g, w in zip(got, want))
-        print(f"deblock kernel vs plain {mbw}x{mbh} MBs"
-              f"{' blocky' if blocky else ''}: equal={eq} "
-              f"max_abs_err={err}")
-        results.append(eq)
-        max_err = max(max_err, err)
-    # deblock idc 2: bS from encoder symbols, band tops of 4 slices zeroed
+    from openh264_tpu_torch.encoder import deblock_torch
     rng = np.random.default_rng(4)
     mbw, mbh = 80, 45
     n = mbw * mbh
@@ -179,34 +160,77 @@ def phase_kernels(dev):
     planes = deblock_inputs(mbw, mbh, 5, dev, blocky=True)[:3]
     qp = torch.full((n,), 33, dtype=torch.int32, device=dev)
     cqp = torch.full((n,), 31, dtype=torch.int32, device=dev)
-    want = deblock_torch.deblock_frame_device(*planes, BSV, BSH, qp, cqp,
-                                              mbw, mbh)
-    got = deblock_cuda.deblock_frame_cuda(*[p.clone() for p in planes],
-                                          BSV, BSH, qp, cqp, mbw, mbh)
-    torch.cuda.synchronize()
-    eq = all(torch.equal(g, w) for g, w in zip(got, want))
-    print(f"deblock kernel vs plain 80x45 idc2 zero rows: equal={eq}")
-    results.append(eq)
+    return planes + [BSV, BSH, qp, cqp]
+
+
+def phase_kernels(dev):
+    """Kernel vs plain on the card, exact equality: random bS/QP on the
+    (6,5), (4,7), (9,3) and 80x45 MB grids (random and blocky planes);
+    the schedule's corner grids (1,1), (1,3), (2,300) (more MB rows than
+    SMs, so blocks take several rows by ticket) and 1080p's (120,68);
+    one deblock-idc-2 frame (band-top MB rows with zeroed bS); then 50
+    repeats at 80x45, where a fault in the progress counters would show
+    now and then. The kernel filters its planes in place, so it always
+    gets clones."""
+    import torch
+    from openh264_tpu_torch.encoder import deblock_cuda, deblock_torch
+    mbw, mbh = 80, 45
+    results = []
+    max_err = 0
+
+    def check(args, mbw, mbh, label):
+        nonlocal max_err
+        want = deblock_torch.deblock_frame_device(*args, mbw, mbh)
+        got = deblock_cuda.deblock_frame_cuda(
+            *[t.clone() for t in args[:3]], *args[3:], mbw, mbh)
+        torch.cuda.synchronize()
+        err = max(int((g.int() - w.int()).abs().max()) for g, w in
+                  zip(got, want))
+        eq = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"deblock kernel vs plain {label}: equal={eq} "
+              f"max_abs_err={err}")
+        results.append(eq)
+        max_err = max(max_err, err)
+
+    for w, h, seed, blocky in [(6, 5, 0, False), (4, 7, 1, False),
+                               (9, 3, 2, False), (80, 45, 3, False),
+                               (80, 45, 6, True), (1, 1, 7, True),
+                               (1, 3, 8, True), (2, 300, 9, True),
+                               (120, 68, 10, True)]:
+        check(deblock_inputs(w, h, seed, dev, blocky), w, h,
+              f"{w}x{h} MBs{' blocky' if blocky else ''}")
+    args = idc2_inputs(dev)
+    check(args, mbw, mbh, "80x45 idc2 zero rows")
+    for label, a in (("blocky", deblock_inputs(mbw, mbh, 6, dev, True)),
+                     ("idc2", args)):
+        want = deblock_torch.deblock_frame_device(*a, mbw, mbh)
+        bad = 0
+        for _ in range(50):
+            got = deblock_cuda.deblock_frame_cuda(
+                *[t.clone() for t in a[:3]], *a[3:], mbw, mbh)
+            torch.cuda.synchronize()
+            bad += not all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"deblock kernel 50 repeats 80x45 {label}: {bad} differ")
+        results.append(bad == 0)
     if not all(results):
         fail("deblock kernel disagrees with its plain version")
 
     # timing at the main path's shape (80x45 MBs, encoder bS); each
     # kernel run filters fresh clones of the same planes, cloned outside
     # the timed span
-    args = planes + [BSV, BSH, qp, cqp]
     k_ms, k_all = cuda_ms(
         lambda *a: deblock_cuda.deblock_frame_cuda(*a, mbw, mbh), runs=25,
-        setup=lambda: [p.clone() for p in planes] + args[3:])
+        setup=lambda: [p.clone() for p in args[:3]] + args[3:])
     p_ms, p_all = cuda_ms(
         lambda *a: deblock_torch.deblock_frame_device(*a, mbw, mbh),
         runs=20, setup=lambda: args)
-    bound, bound_by, nbytes, ops = deblock_bound_ms(mbw, mbh, BSV, BSH)
-    nd = mbw + 2 * (mbh - 1)
+    bound, bound_by, nbytes, ops = deblock_bound_ms(mbw, mbh, *args[3:5])
+    steps = mbw + 2 * (mbh - 1)
     print(f"deblock 80x45: kernel {k_ms:.4f} ms (min {min(k_all):.4f}, "
-          f"max {max(k_all):.4f}, 25 runs), plain {p_ms:.4f} ms "
-          f"(20 runs), bound {bound:.6f} ms by {bound_by} ({nbytes} B, "
-          f"{ops} ops), {nd} dependent diagonal launches: "
-          f"{k_ms / nd * 1e3:.2f} us each")
+          f"max {max(k_all):.4f}, 25 runs, one launch each), plain "
+          f"{p_ms:.4f} ms (20 runs), bound {bound:.6f} ms by {bound_by} "
+          f"({nbytes} B, {ops} ops); critical path {steps} MB steps: "
+          f"{k_ms / steps * 1e3:.2f} us per step")
     return {"name": "deblock_wavefront", "route": "cuda",
             "source": "openh264_tpu_torch/csrc/deblock.cu",
             "wrapper": "openh264_tpu_torch/encoder/deblock_cuda.py",

@@ -1,12 +1,14 @@
 """Wrapper of the Hopper deblock kernel (csrc/deblock.cu).
 
 Replaces the TPU kernel openh264_tpu/encoder/deblock_pallas.py
-(deblock_frame_pallas). The kernel filters one frame as a knight
-wavefront: one launch per diagonal d = x + 2y, one block per MB of the
-diagonal, all 168 launches (at 720p) issued by one C call on the
-current stream. What bounds it on the card is that chain of dependent
-steps, not the ~2.8 MB it moves; see the note at the top of the CUDA
-source. Its plain version is deblock_torch.deblock_frame_device.
+(deblock_frame_pallas). The kernel filters one frame in one persistent
+launch on the current stream: blocks take MB rows by an atomic ticket,
+and row y filters MB x once row y-1 has finished MB x+1, read from
+per-row progress counters in a zeroed int32 scratch that this wrapper
+allocates. What bounds it on the card is the latency of that chain of
+mb_w + 2*(mb_h-1) dependent MB steps, not the ~3.3 MB it moves; see the
+note at the top of the CUDA source. Its plain version is
+deblock_torch.deblock_frame_device.
 
 The wrapper checks its inputs and raises on anything the kernel does
 not take; it never falls back to the plain version.
@@ -21,7 +23,8 @@ import torch
 
 from .. import _build
 
-# calls that launched the kernel (one per deblocked frame)
+# calls that launched the kernel: one per deblocked frame, and each call
+# is one kernel launch
 launches = 0
 
 
@@ -30,13 +33,13 @@ def _kernel():
     """The C entry point, with its argument types declared: pointers and
     the stream as void*, so that ctypes does not cut them to 32 bits."""
     fn = _build.load("deblock").deblock_frame
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(t, name, dtype, shape, device):
+def _check(t, name, dtype, shape, device, align=4):
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got "
                          f"{t.device}")
@@ -47,6 +50,8 @@ def _check(t, name, dtype, shape, device):
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
 
 
 def deblock_frame_cuda(y, u, v, BSV, BSH, qp_mb, cqp_mb,
@@ -57,25 +62,32 @@ def deblock_frame_cuda(y, u, v, BSV, BSH, qp_mb, cqp_mb,
     again; a caller that needs the unfiltered planes clones them first.
     All tensors on one CUDA device: y [16*mb_h, 16*mb_w], u/v
     [8*mb_h, 8*mb_w] uint8; BSV/BSH [4*mb_h, 4*mb_w] int32; qp_mb/cqp_mb
-    [mb_w*mb_h] int32. bS and QP are only read."""
+    [mb_w*mb_h] int32. bS and QP are only read. The kernel reads whole
+    MB lines, so y must start on 16 bytes and u/v on 8 (fresh tensors
+    do). One call is one kernel launch."""
     global launches
     dev = y.device
     if not y.is_cuda:
         raise ValueError("deblock_frame_cuda takes CUDA tensors")
     u8, i32 = torch.uint8, torch.int32
-    _check(y, "y", u8, (16 * mb_h, 16 * mb_w), dev)
-    _check(u, "u", u8, (8 * mb_h, 8 * mb_w), dev)
-    _check(v, "v", u8, (8 * mb_h, 8 * mb_w), dev)
+    _check(y, "y", u8, (16 * mb_h, 16 * mb_w), dev, align=16)
+    _check(u, "u", u8, (8 * mb_h, 8 * mb_w), dev, align=8)
+    _check(v, "v", u8, (8 * mb_h, 8 * mb_w), dev, align=8)
     _check(BSV, "BSV", i32, (4 * mb_h, 4 * mb_w), dev)
     _check(BSH, "BSH", i32, (4 * mb_h, 4 * mb_w), dev)
     _check(qp_mb, "qp_mb", i32, (mb_w * mb_h,), dev)
     _check(cqp_mb, "cqp_mb", i32, (mb_w * mb_h,), dev)
     kernel = _kernel()
+    # per-row progress counters and the row ticket, zero at launch; the
+    # caching allocator hands the block out again only to work queued
+    # after the kernel on this stream, so it may be freed on return
+    scratch = torch.zeros(mb_h + 1, dtype=i32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = kernel(y.data_ptr(), u.data_ptr(), v.data_ptr(),
                      BSV.data_ptr(), BSH.data_ptr(), qp_mb.data_ptr(),
-                     cqp_mb.data_ptr(), mb_w, mb_h, stream)
+                     cqp_mb.data_ptr(), scratch.data_ptr(), mb_w, mb_h,
+                     stream)
     if err != 0:
         raise RuntimeError(f"deblock kernel launch failed: CUDA error {err}")
     launches += 1

@@ -6,14 +6,20 @@ the plain version of the CUDA kernel in deblock_cuda.py: the CPU path
 runs it, and the chip smoke test holds the kernel against it.
 
 Scheduling (deblock_jax.py:10-17): MB (x, y) reads pixels last written
-by MBs (x-1, y), (x, y-1) and (x+1, y-1). All three lie on earlier
-knight diagonals d = x + 2y, and the 20x20 luma / 10x10 chroma regions
-of two MBs on one diagonal are disjoint, so each diagonal is one
-batched gather -> 8 luma + 4 chroma edge passes -> scatter, and a frame
-takes mb_w + 2*mb_h - 2 steps. The JAX twin shears the planes so each
-diagonal is one column band (a TPU layout trick); here the regions are
-gathered directly from zero-padded planes, which gives the same result:
-the padding only feeds picture-border edges, whose bS is forced to 0.
+by MBs (x-1, y), (x, y-1) and (x+1, y-1), and the 20x20 luma / 10x10
+chroma regions of MBs that may run at once are disjoint. Any order that
+runs each MB after those three gives the same bytes. The plain version
+runs the knight diagonals d = x + 2y, each as one batched gather -> 8
+luma + 4 chroma edge passes -> scatter (`_filter_mbs`), mb_w + 2*mb_h - 2
+steps a frame. The CUDA kernel runs MB rows as a pipeline in one launch
+(row y runs MB x's vertical pass after its own MB x-1, and its
+horizontal pass once row y-1 has finished MB x+1);
+tests/test_torch_deblock_schedule.py runs `_filter_mbs` pass by pass in
+that order.
+The JAX twin shears the planes so each diagonal is one column band (a
+TPU layout trick); here the regions are gathered directly from
+zero-padded planes, which gives the same result: the padding only feeds
+picture-border edges, whose bS is forced to 0.
 """
 
 from __future__ import annotations
@@ -189,39 +195,28 @@ def _diagonals(mb_w: int, mb_h: int):
     return out
 
 
-def deblock_frame_device(y, u, v, BSV, BSH, qp_mb, cqp_mb,
-                         mb_w: int, mb_h: int):
-    """Filter one frame; returns new (y, u, v) uint8 planes.
-
-    y/u/v: uint8 planes (MB-aligned); BSV/BSH: [4*mb_h, 4*mb_w] int32;
-    qp_mb / cqp_mb: [n_mb] int32 luma / chroma QP per MB.
-    Single-slice semantics (left/top availability = picture border),
-    alpha/beta offsets 0 — the session's configuration.
-    """
-    dev = y.device
-    H, W = y.shape
-    Hc, Wc = u.shape
-    prm = _edge_params(BSV, BSH, qp_mb, cqp_mb, mb_w, mb_h)
-    # zero-padded working planes (4 luma / 2 chroma rows and columns of
-    # top-left halo), filtered in place diagonal by diagonal
-    Yp = torch.zeros((H + 4, W + 4), dtype=I32, device=dev)
-    Yp[4:, 4:] = y
-    UVp = torch.zeros((2, Hc + 2, Wc + 2), dtype=I32, device=dev)
-    UVp[0, 2:, 2:] = u
-    UVp[1, 2:, 2:] = v
+def _filter_mbs(Yp, UVp, prm, ids, passes: str = "vh"):
+    """Filters the MBs `ids` (int64 MB ids whose regions are disjoint) in
+    the padded working planes in place: one batched gather of their
+    regions, the edge passes, one scatter back. passes "vh" runs the 4
+    luma + 2 chroma vertical edges, then the horizontal ones; "v" or "h"
+    runs one of them and writes back only what it touches (the MB's own
+    rows, or its own columns). Yp [H+4, W+4] and UVp [2, Hc+2, Wc+2]
+    int32 carry 4 luma / 2 chroma rows and columns of zero top-left
+    halo; prm is _edge_params'."""
+    dev = Yp.device
+    mb_w = (Yp.shape[1] - 4) // 16
     r20 = torch.arange(20, device=dev)
     r10 = torch.arange(10, device=dev)
+    mx, my = ids % mb_w, ids // mb_w
+    ry = (16 * my[:, None] + r20)[:, :, None]
+    rx = (16 * mx[:, None] + r20)[:, None, :]
+    cy = (8 * my[:, None] + r10)[:, :, None]
+    cx = (8 * mx[:, None] + r10)[:, None, :]
+    R = Yp[ry, rx]                       # [L,20,20]
+    C = UVp[:, cy, cx]                   # [2,L,10,10]
 
-    for ids_np in _diagonals(mb_w, mb_h):
-        ids = torch.as_tensor(ids_np, device=dev)
-        mx, my = ids % mb_w, ids // mb_w
-        ry = (16 * my[:, None] + r20)[:, :, None]
-        rx = (16 * mx[:, None] + r20)[:, None, :]
-        cy = (8 * my[:, None] + r10)[:, :, None]
-        cx = (8 * mx[:, None] + r10)[:, None, :]
-        R = Yp[ry, rx]                       # [L,20,20]
-        C = UVp[:, cy, cx]                   # [2,L,10,10]
-
+    if "v" in passes:
         bs, al, be, tc = (t[ids] for t in prm["v"])
         cbs, cal, cbe, ctc = (t[ids] for t in prm["cv"])
         for e in range(4):
@@ -234,6 +229,7 @@ def deblock_frame_device(y, u, v, BSV, BSH, qp_mb, cqp_mb,
                     C[:, :, 2:10, 4 * ce:4 * ce + 4], cbs[:, ce],
                     cal[:, ce, None], cbe[:, ce, None], ctc[:, ce])
 
+    if "h" in passes:
         bs, al, be, tc = (t[ids] for t in prm["h"])
         cbs, cal, cbe, ctc = (t[ids] for t in prm["ch"])
         for e in range(4):
@@ -249,11 +245,49 @@ def deblock_frame_device(y, u, v, BSV, BSH, qp_mb, cqp_mb,
                     ctc[:, ce])
                 C[:, :, 4 * ce + 1:4 * ce + 3, 2:10] = newc.transpose(2, 3)
 
-        Yp[ry, rx] = R                       # regions are disjoint
-        UVp[:, cy, cx] = C
+    # regions are disjoint; one pass alone leaves the top rows ("v") or
+    # the left columns ("h") as gathered, so it does not write them back
+    lo = 4 * (passes == "v"), 4 * (passes == "h")
+    Yp[ry[:, lo[0]:], rx[:, :, lo[1]:]] = R[:, lo[0]:, lo[1]:]
+    clo = lo[0] // 2, lo[1] // 2
+    UVp[:, cy[:, clo[0]:], cx[:, :, clo[1]:]] = C[:, :, clo[0]:, clo[1]:]
 
+
+def _deblock_in_order(y, u, v, BSV, BSH, qp_mb, cqp_mb, mb_w: int,
+                      mb_h: int, steps):
+    """Filters one frame by running `_filter_mbs` on each step, an (MB
+    ids, passes) pair, in turn; returns new (y, u, v) uint8 planes. The
+    result is the frame's deblock when each MB's passes come in order,
+    after its three producers (see the module note)."""
+    dev = y.device
+    H, W = y.shape
+    Hc, Wc = u.shape
+    prm = _edge_params(BSV, BSH, qp_mb, cqp_mb, mb_w, mb_h)
+    # zero-padded working planes (4 luma / 2 chroma rows and columns of
+    # top-left halo), filtered in place step by step
+    Yp = torch.zeros((H + 4, W + 4), dtype=I32, device=dev)
+    Yp[4:, 4:] = y
+    UVp = torch.zeros((2, Hc + 2, Wc + 2), dtype=I32, device=dev)
+    UVp[0, 2:, 2:] = u
+    UVp[1, 2:, 2:] = v
+    for ids, passes in steps:
+        _filter_mbs(Yp, UVp, prm, torch.as_tensor(ids, device=dev), passes)
     u8 = torch.uint8
     return (Yp[4:, 4:].to(u8), UVp[0, 2:, 2:].to(u8), UVp[1, 2:, 2:].to(u8))
+
+
+def deblock_frame_device(y, u, v, BSV, BSH, qp_mb, cqp_mb,
+                         mb_w: int, mb_h: int):
+    """Filter one frame; returns new (y, u, v) uint8 planes.
+
+    y/u/v: uint8 planes (MB-aligned); BSV/BSH: [4*mb_h, 4*mb_w] int32;
+    qp_mb / cqp_mb: [n_mb] int32 luma / chroma QP per MB.
+    Single-slice semantics (left/top availability = picture border),
+    alpha/beta offsets 0 — the session's configuration. Runs the knight
+    diagonals in order, one batch of both passes each.
+    """
+    return _deblock_in_order(y, u, v, BSV, BSH, qp_mb, cqp_mb, mb_w, mb_h,
+                             [(d, "vh") for d in _diagonals(mb_w, mb_h)])
 
 
 def deblock_frame_auto(y, u, v, BSV, BSH, qp_mb, cqp_mb,

@@ -54,8 +54,9 @@ def test_cuda_source_tables_match():
 
 
 def test_entry_point_declares_pointer_types(monkeypatch):
-    """Pointers and the stream must go through ctypes as void*: with the
-    default int argument type they would be cut to 32 bits."""
+    """Pointers (the 7 tensors and the progress scratch) and the stream
+    must go through ctypes as void*: with the default int argument type
+    they would be cut to 32 bits."""
     import ctypes
 
     class FakeLib:
@@ -65,7 +66,7 @@ def test_entry_point_declares_pointer_types(monkeypatch):
     dc._kernel.cache_clear()
     try:
         fn = dc._kernel()
-        assert fn.argtypes == [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 \
+        assert fn.argtypes == [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 \
             + [ctypes.c_void_p]
         assert fn.restype is ctypes.c_int
     finally:
@@ -94,8 +95,12 @@ def test_auto_dispatch_on_cpu_is_plain():
 @pytest.mark.parametrize("mbw,mbh,seed,blocky",
                          [(6, 5, 0, False), (4, 7, 1, False),
                           (9, 3, 2, False), (1, 3, 4, True),
-                          (6, 5, 5, True), (80, 45, 3, True)])
+                          (6, 5, 5, True), (80, 45, 3, True),
+                          (1, 1, 8, True), (2, 300, 9, True),
+                          (120, 68, 10, True)])
 def test_cuda_kernel_matches_plain(mbw, mbh, seed, blocky):
+    """(2, 300) has more MB rows than the card has SMs: blocks take
+    several rows by ticket. (120, 68) is the 1080p grid."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     args = [a.cuda() for a in _inputs(mbw, mbh, seed, blocky)]
@@ -111,3 +116,35 @@ def test_cuda_kernel_matches_plain(mbw, mbh, seed, blocky):
         assert g.data_ptr() == a.data_ptr()
     for a, b in zip(args[3:], before[3:]):   # bS and QP only read
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_repeats_exactly():
+    """50 runs on one 80x45 input, each on fresh clones, all equal to the
+    plain version: a fault in the progress counters would show only now
+    and then."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = [a.cuda() for a in _inputs(80, 45, 11, blocky=True)]
+    want = dt.deblock_frame_device(*args, 80, 45)
+    for _ in range(50):
+        got = dc.deblock_frame_cuda(*[a.clone() for a in args[:3]],
+                                    *args[3:], 80, 45)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_misaligned_planes():
+    """The kernel reads whole MB lines (16 bytes of luma, 8 of chroma):
+    a plane that starts off that alignment is refused, not launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = [a.cuda() for a in _inputs(6, 5, 12)]
+    n0 = dc.launches
+    y = torch.empty(args[0].numel() + 8, dtype=torch.uint8,
+                    device="cuda")[8:].view(args[0].shape)
+    with pytest.raises(ValueError):
+        dc.deblock_frame_cuda(y, *args[1:], 6, 5)
+    assert dc.launches == n0

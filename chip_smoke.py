@@ -7,16 +7,25 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the deblock kernel from csrc/deblock.cu with nvcc;
+  2. build the deblock kernel from csrc/deblock.cu with nvcc, and the
+     host C of the host encoder from csrc/host_native.c with cc;
   3. each kernel against its plain PyTorch version on the card, exact
      equality, on many grids and in 50 repeats, and both timed with
      CUDA events;
   4. the main path: DeviceSessionEncoder(device="cuda").encode_stream on
-     16 frames of synthetic 720p content in two configs, 3 timed runs
+     16 frames of synthetic 720p content in two configs, 2 timed runs
      each (frames/s), the kernels' launch counts over exactly each run,
      and a torch.profiler table of 3 more P frames per config;
   5. the same 720p frames encoded on "cuda" and on "cpu" must give the
-     same Annex-B bytes.
+     same Annex-B bytes;
+  6. the host encoder path: CWelsH264SVCEncoder / H264Encoder(device=
+     "cuda") on 720p content in four configs (the API with I4x4 in host
+     C; 4 fixed slices in band mode; screen content with the scroll
+     candidate, adaptive quant, GOM rate control and LTR recovery;
+     size-limited slices), 2 timed runs of 8 frames each (frames/s), the
+     deblock kernel's launches against the deblocked frames of each run,
+     the CUDA stream against the CPU stream over 3 frames, and a
+     torch.profiler device-busy share over 2 more P frames.
 It prints a `kernels` JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a GPU, or without the package beside it, it exits non-zero and
@@ -37,7 +46,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 W720, H720 = 1280, 720
 N_FRAMES = 16          # per main-path run: 1 IDR + 15 P
-REPEATS = 3            # timed runs of each main-path config
+REPEATS = 2            # timed runs of each main-path config
+HOST_FRAMES = 8        # per host-encoder run: 1 IDR + 7 P
+HOST_REPEATS = 2       # timed runs of each host-encoder config
+SCROLL_ROWS = 8        # screen content scrolls this many rows a frame
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, used for 32-bit integer work
 HBM_BYTES_PER_S = 3.35e12
@@ -68,6 +80,18 @@ def frames_720p(n: int, seed: int):
         out.append(tuple(np.clip(a, 0, 255).astype(np.uint8)
                          for a in (y, u, v)))
     return out
+
+
+def frames_720p_scroll(n: int, seed: int, step: int = SCROLL_ROWS):
+    """Screen content scrolling `step` luma rows a frame: the first two
+    frames of frames_720p stacked into one tall page, read through a
+    720-row window that moves down the page. Rows repeat exactly between
+    frames, as on a screen."""
+    base = frames_720p(2, seed)
+    page = [np.concatenate([base[0][k], base[1][k]]) for k in range(3)]
+    return [tuple(np.ascontiguousarray(p[(step >> s) * i:
+                                         (step >> s) * i + (H720 >> s)])
+                  for p, s in zip(page, (0, 1, 1))) for i in range(n)]
 
 
 def card_line() -> str:
@@ -223,12 +247,12 @@ def phase_kernels(dev):
         setup=lambda: [p.clone() for p in args[:3]] + args[3:])
     p_ms, p_all = cuda_ms(
         lambda *a: deblock_torch.deblock_frame_device(*a, mbw, mbh),
-        runs=20, setup=lambda: args)
+        runs=10, setup=lambda: args)
     bound, bound_by, nbytes, ops = deblock_bound_ms(mbw, mbh, *args[3:5])
     steps = mbw + 2 * (mbh - 1)
     print(f"deblock 80x45: kernel {k_ms:.4f} ms (min {min(k_all):.4f}, "
           f"max {max(k_all):.4f}, 25 runs, one launch each), plain "
-          f"{p_ms:.4f} ms (20 runs), bound {bound:.6f} ms by {bound_by} "
+          f"{p_ms:.4f} ms (10 runs), bound {bound:.6f} ms by {bound_by} "
           f"({nbytes} B, {ops} ops); critical path {steps} MB steps: "
           f"{k_ms / steps * 1e3:.2f} us per step")
     return {"name": "deblock_wavefront", "route": "cuda",
@@ -297,16 +321,20 @@ def phase_main_path(dev, card: str):
 
 
 def profile_p_frames(enc, fr, name):
-    """torch.profiler over 3 more P frames of a warmed-up session: device
-    time by op, and the device's busy share of the wall time."""
+    """torch.profiler over 3 more P frames of a warmed-up session."""
+    profile_frames(lambda: enc.encode_stream(iter(fr[:3])), 3, name)
+
+
+def profile_frames(run, n: int, name: str):
+    """torch.profiler over run(), which encodes n frames: device time by
+    op, and the device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    more = fr[:3]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        enc.encode_stream(iter(more))
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -317,9 +345,12 @@ def profile_p_frames(enc, fr, name):
     dev_us = sum(e.self_device_time_total for e in ka
                  if e.device_type == DeviceType.CUDA
                  and not e.is_user_annotation)
-    print(f"profile {name}: 3 frames wall {wall * 1e3:.1f} ms, device busy "
-          f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}% of wall)")
+    print(f"profile {name}: {n} frames wall {wall * 1e3:.1f} ms, device "
+          f"busy {dev_us / 1e3:.1f} ms "
+          f"({100 * dev_us / 1e6 / wall:.1f}% of wall)")
     print(table)
+    return {"wall_ms": wall * 1e3, "device_busy_ms": dev_us / 1e3,
+            "busy_share": dev_us / 1e6 / wall}
 
 
 def phase_cross_check(dev):
@@ -343,6 +374,134 @@ def phase_cross_check(dev):
     print("cross-check: CUDA and CPU Annex-B byte-identical")
 
 
+# the host encoder's configs: (entry point, settings, content, frame
+# index -> call made on the encoder before that frame)
+HOST_CONFIGS = {
+    # the API's normal path: one CAVLC slice, so I4x4 runs in host C on
+    # the IDR; intra-in-P on the P frames; RC off, QP 28, deblocking on
+    "api_cavlc": ("api", dict(iRCMode=-1, iInitialQp=28), "camera", {}),
+    # 4 fixed slices (band mode, row_off) under bitrate RC
+    "host_4slice_rc": ("host", dict(qp=28, rc_mode=1,
+                                    target_bitrate=4_000_000,
+                                    max_frame_rate=30.0, num_slices=4),
+                       "camera", {}),
+    # one slice of screen content: the scroll candidate (extra_mv), per-MB
+    # QP from adaptive quant and GOM RC, LTR marking and one recovery
+    "host_screen_aq_ltr": ("host", dict(qp=28, rc_mode=1,
+                                        target_bitrate=4_000_000,
+                                        max_frame_rate=30.0, usage_type=1,
+                                        enable_adaptive_quant=True,
+                                        enable_gom_rc=True, enable_ltr=True,
+                                        ltr_mark_period=2),
+                           "screen", {5: "ltr_recovery_request"}),
+    # SM_SIZELIMITED: slices close at 1500 bytes (per-MB host writer)
+    "host_sizelimited": ("host", dict(qp=28, slice_size_constraint=1500),
+                         "camera", {}),
+}
+
+
+def host_encoder(kind: str, kw: dict, dev):
+    """(encoder, encode(y, u, v) -> bytes, the H264Encoder behind it)."""
+    if kind == "api":
+        from openh264_tpu_torch.api import SEncParamExt, WelsCreateSVCEncoder
+        api = WelsCreateSVCEncoder(device=dev)
+        if api.InitializeExt(SEncParamExt(iPicWidth=W720, iPicHeight=H720,
+                                          **kw)) != 0:
+            fail("InitializeExt refused the api_cavlc parameters")
+        return api.EncodeFrame, api._enc
+    from openh264_tpu_torch.encoder.config import EncoderConfig
+    from openh264_tpu_torch.encoder.encoder import H264Encoder
+    enc = H264Encoder(EncoderConfig(width=W720, height=H720, **kw),
+                      device=dev)
+    return enc.encode_frame, enc
+
+
+def host_encode(kind, kw, dev, frames, calls):
+    """(Annex-B bytes per frame, host seconds per frame, encode)."""
+    encode, enc = host_encoder(kind, kw, dev)
+    out, secs = [], []
+    for i, f in enumerate(frames):
+        if i in calls:
+            getattr(enc, calls[i])()
+        t0 = time.perf_counter()
+        out.append(encode(*f))
+        secs.append(time.perf_counter() - t0)
+    return out, secs, encode
+
+
+def phase_host_encoder(dev, card: str):
+    """The host encoder path on 720p content in each of HOST_CONFIGS:
+    timed runs whose deblock launches must equal their deblocked frames,
+    a profile of 2 more P frames, and CUDA against CPU over 3 frames."""
+    import torch
+    from openh264_tpu_torch.encoder import deblock_cuda
+    from openh264_tpu_torch.processing.scroll import detect_scroll
+    content = {"camera": frames_720p(HOST_FRAMES + 2, seed=2024),
+               "screen": frames_720p_scroll(HOST_FRAMES + 2, seed=2024)}
+    sc = content["screen"]
+    hits = [detect_scroll(torch.from_numpy(sc[i + 1][0]).to(dev),
+                          torch.from_numpy(sc[i][0]).to(dev))
+            for i in range(2)]
+    print(f"host encoder: scroll detected on the screen content: {hits}")
+    if hits != [(True, SCROLL_ROWS)] * 2:
+        fail(f"screen content: scroll of {SCROLL_ROWS} rows not detected")
+    # warm-up: first-use costs (host C build, allocator, constants)
+    host_encode("api", HOST_CONFIGS["api_cavlc"][1], dev,
+                content["camera"][:2], {})
+    torch.cuda.synchronize()
+    out, launches = {}, 0
+    for name, (kind, kw, src, calls) in HOST_CONFIGS.items():
+        fr = content[src]
+        runs = []
+        for _ in range(HOST_REPEATS):
+            deblock_cuda.launches = 0
+            t0 = time.perf_counter()
+            bs, secs, encode = host_encode(kind, kw, dev, fr[:HOST_FRAMES],
+                                           calls)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n_launch = deblock_cuda.launches
+            coded = sum(1 for b in bs if b)
+            print(f"host encoder {name}: {HOST_FRAMES} frames 1280x720 in "
+                  f"{dt:.3f} s = {HOST_FRAMES / dt:.3f} frames/s ({coded} "
+                  f"coded, {sum(map(len, bs))} bytes, slice NALs per frame "
+                  f"{[b.count(b'\x00\x00\x00\x01') for b in bs]}) on "
+                  f"{card}; deblock kernel launches {n_launch}; seconds per "
+                  f"frame {[round(t, 3) for t in secs]}")
+            if coded < HOST_FRAMES // 2:
+                fail(f"{name}: {coded} of {HOST_FRAMES} frames coded")
+            if not all(b.startswith(b"\x00\x00\x00\x01") for b in bs if b):
+                fail(f"{name}: output is not Annex-B")
+            if n_launch != coded:
+                fail(f"{name}: deblock kernel launched {n_launch} times for "
+                     f"{coded} deblocked frames")
+            launches += n_launch
+            runs.append({"fps": HOST_FRAMES / dt, "seconds": dt,
+                         "idr_s": secs[0],
+                         "p_s_median": statistics.median(secs[1:]),
+                         "coded": coded, "bytes": sum(map(len, bs)),
+                         "deblock_launches": n_launch})
+        prof = profile_frames(lambda: [encode(*f) for f in
+                                       fr[HOST_FRAMES:HOST_FRAMES + 2]],
+                              2, f"host {name}")
+        streams = {}
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            streams[d] = host_encode(kind, kw, d, fr[:3], calls)[0]
+            print(f"host cross-check {name}: {d} encoded 3 frames in "
+                  f"{time.perf_counter() - t0:.2f} s, sizes "
+                  f"{[len(b) for b in streams[d]]}")
+        if streams[dev] != streams["cpu"]:
+            fail(f"host encoder {name}: CUDA and CPU streams differ")
+        print(f"host cross-check {name}: CUDA and CPU Annex-B "
+              f"byte-identical")
+        fps = [r["fps"] for r in runs]
+        out[name] = {"frames": HOST_FRAMES,
+                     "fps_median": statistics.median(fps), "fps_runs": fps,
+                     "runs": runs, "profile_2p": prof}
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -363,6 +522,8 @@ def main():
 
     seconds, log = _build.build("deblock")
     print(f"build deblock: {seconds:.2f} s\n{log.strip()}")
+    seconds, log = _build.build("host_native")
+    print(f"build host_native (host C, cc): {seconds:.2f} s {log.strip()}")
 
     t0 = time.perf_counter()
     kern = phase_kernels(dev)
@@ -370,14 +531,21 @@ def main():
     t0 = time.perf_counter()
     main_path, launches = phase_main_path(dev, card)
     print(f"phase main path: {time.perf_counter() - t0:.1f} s")
-    kern["launches"] = launches
     if launches == 0:
         fail("the main path never launched the deblock kernel")
     t0 = time.perf_counter()
     phase_cross_check(dev)
     print(f"phase cross-check: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    host_path, host_launches = phase_host_encoder(dev, card)
+    print(f"phase host encoder: {time.perf_counter() - t0:.1f} s")
+    if host_launches == 0:
+        fail("the host encoder path never launched the deblock kernel")
+    kern["launches"] = launches + host_launches
     print(f"main path summary: "
           f"{json.dumps({'card': card, 'configs': main_path})}")
+    print(f"host encoder summary: "
+          f"{json.dumps({'card': card, 'configs': host_path})}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kern]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-"""PyTorch/CUDA port of the openh264_tpu encoder session.
+"""PyTorch/CUDA port of the openh264_tpu encoder.
 
 The JAX package `openh264_tpu` is the unchanged reference; this package
-imports nothing of it (nor of JAX). Its main path is
-`encoder.session_device.DeviceSessionEncoder`, whose in-loop deblock
-runs as a hand-written CUDA kernel for Hopper (`csrc/deblock.cu`) on a
-CUDA device and as its plain PyTorch version on the CPU.
+imports nothing of it (nor of JAX). Its entry points are the
+device-resident session `encoder.session_device.DeviceSessionEncoder`,
+the host encoder `encoder.encoder.H264Encoder` and the encoder API
+`api.CWelsH264SVCEncoder`. Their in-loop deblock runs as a hand-written
+CUDA kernel for Hopper (`csrc/deblock.cu`) on a CUDA device and as its
+plain PyTorch version on the CPU.
 """
 
 from .device import resolve_device

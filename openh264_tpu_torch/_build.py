@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C.
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (sm_90a) into a
-shared library with a plain C interface and loaded with ctypes. The
-build happens at first use, into `build/openh264_tpu_torch/` beside the
-package (git-ignored); the file name carries a hash of the source and
-flags, so an edited source rebuilds and an unchanged one loads at once.
+shared library with a plain C interface and loaded with ctypes. Each
+`csrc/<name>.c` is host code, compiled by the host C compiler (`cc`)
+and never by nvcc. Builds happen at first use, into
+`build/openh264_tpu_torch/` beside the package (git-ignored); the file
+name carries a hash of the source and flags, so an edited source
+rebuilds and an unchanged one loads at once. A failed build raises.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "openh264_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CC_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -33,34 +36,56 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _cc() -> str:
+    for cand in (os.environ.get("CC"), "cc", "gcc", "clang"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C compiler (cc) found: the port's host C "
+                       "(csrc/*.c) cannot be built")
+
+
+def _source(name: str) -> tuple[Path, list[str]]:
+    """The source of `name` and its compiler's flags: csrc/<name>.cu goes
+    to nvcc, csrc/<name>.c to the host compiler."""
+    cu = CSRC / f"{name}.cu"
+    if cu.exists():
+        return cu, NVCC_FLAGS
+    return CSRC / f"{name}.c", CC_FLAGS
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src, flags = _source(name)
+    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                         ).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
 
 def build(name: str) -> tuple[float, str]:
-    """Compiles csrc/<name>.cu unless it is already built. Returns the
-    build's seconds (0.0 when cached) and nvcc's output (registers,
-    shared memory, spills)."""
+    """Compiles csrc/<name>.cu (nvcc) or csrc/<name>.c (cc) unless it is
+    already built. Returns the build's seconds (0.0 when cached) and the
+    compiler's output (for nvcc: registers, shared memory, spills)."""
     out = _target(name)
     if out.exists():
         return 0.0, "(cached)"
+    src, flags = _source(name)
+    compiler = _nvcc() if src.suffix == ".cu" else _cc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                          str(CSRC / f"{name}.cu")],
+    res = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{res.stdout}")
+        raise RuntimeError(f"{Path(compiler).name} failed for "
+                           f"csrc/{src.name}:\n{res.stdout}")
     os.replace(tmp, out)
     return time.perf_counter() - t0, res.stdout
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The shared library of csrc/<name>.cu, built first if needed."""
+    """The shared library of csrc/<name>.cu or .c, built first if
+    needed."""
     build(name)
     return ctypes.CDLL(str(_target(name)))

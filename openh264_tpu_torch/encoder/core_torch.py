@@ -1,12 +1,12 @@
 """Encoder core in PyTorch: I16x16 wavefront, intra-in-P, and the P-frame
 motion search, quarter-pel refine, P_Skip promotion, transforms and recon.
 
-Port of openh264_tpu/encoder/core_jax.py, bit-exact with it. Covered:
+Port of openh264_tpu/encoder/core_jax.py, bit-exact with it:
 encode_i_frame (with intra_mask / init_recon), encode_i16_flat,
-chainfree_intra_mask and encode_p_frame (with the prev_skip_sad /
-prev_skip chain). Not covered: encode_p_frame's `extra_mv` screen
-candidate and band mode (`row_off != 0`); the device session uses
-neither.
+chainfree_intra_mask and encode_p_frame, with the prev_skip_sad /
+prev_skip chain, band mode (`row_off`: y/u/v are a band of MB rows, the
+reference planes whole), the `extra_mv` screen-content candidate and
+per-MB QP arrays (adaptive quant, GOM rate control).
 
 Translation notes:
 - everything is int32 torch, like JAX without x64;
@@ -533,11 +533,12 @@ def _soa(plane, size: int, mb_w: int, mb_h: int):
         size, size, mb_w * mb_h).to(I32)
 
 
-def _fullpel_search(y, ry, mb_w, mb_h, sr, lam_mb):
+def _fullpel_search(y, ry, mb_w, mb_h, sr, lam_mb, row_off: int = 0):
     """Hierarchical full-pel search (core_jax.py:514): an exhaustive SSD
     search on 4x-mean-downsampled planes over +-cr coarse offsets,
     cr = ceil(sr/4), then a full-resolution +-3 SAD + lambda*mvd-bits
-    refine around the upscaled coarse best.
+    refine around the upscaled coarse best. row_off: the band's top luma
+    row in the (whole, padded) reference ry.
 
     Returns (mv [n_mb, 2] full-pel, mvp_qx, mvp_qy)."""
     dev = y.device
@@ -562,7 +563,7 @@ def _fullpel_search(y, ry, mb_w, mb_h, sr, lam_mb):
     # lax.dynamic_slice clamps its start into the array; so does this
     c0 = min(max(PAD4 - cr, 0), w4 - (W // 4 + 2 * cr))
     for dy in range(-cr, cr + 1):
-        r0 = min(max(PAD4 + dy, 0), h4 - H // 4)
+        r0 = min(max(PAD4 + (row_off >> 2) + dy, 0), h4 - H // 4)
         reg = ry4[r0:r0 + H // 4, c0:c0 + W // 4 + 2 * cr]
         refs = torch.stack([reg[:, k:k + W // 4] for k in range(n4)])
         d = y4[None] - refs
@@ -580,7 +581,7 @@ def _fullpel_search(y, ry, mb_w, mb_h, sr, lam_mb):
     # ---- stage 2: full-res +-3 refine around the coarse best ----
     mvp_qx, mvp_qy = _coarse_mvp(cmv_x, cmv_y, mb_w, mb_h)
     ar = torch.arange(n_mb, device=dev)
-    gy = PAD + (ar // mb_w) * 16 + cmv_y - 3
+    gy = PAD + row_off + (ar // mb_w) * 16 + cmv_y - 3
     gx = PAD + (ar % mb_w) * 16 + cmv_x - 3
     Gw = gather_windows(ry, gy, gx, 22).permute(1, 2, 0)     # [22,22,N]
     src_soa = _soa(y, 16, mb_w, mb_h)
@@ -757,25 +758,35 @@ def _qpel_select(planes, va_idx, vb_idx):
 
 
 def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp, qp_c,
-                   mb_w: int, mb_h: int, sr: int = 8,
-                   prev_skip_sad=None, prev_skip=None):
+                   mb_w: int, mb_h: int, sr: int = 8, row_off: int = 0,
+                   prev_skip_sad=None, prev_skip=None, extra_mv=None):
     """Batched P16x16 encode (core_jax.py:701): full-pel search, windowed
     quarter-pel refine, P_Skip promotion, transforms and inter recon.
-    qp / qp_c: Python ints or 0-d int32 tensors. Returns the symbol
-    tensors, the costs for the intra-in-P decision and the recon planes.
+
+    qp / qp_c: Python ints, 0-d int32 tensors, or per-MB [n_mb] arrays
+    (the lambda and the SoA quantisers broadcast them per MB).
+    row_off: band mode; y/u/v are the MB rows of one band whose top luma
+    row is row_off, while ref_* are whole planes, so motion reaches
+    outside the band. extra_mv: a quarter-pel [2] screen-content
+    candidate (a scroll vector, whole-pel), tried for every MB whose
+    16x16 window lies in the padded plane and taken where its cost is
+    strictly lower. Returns the symbol tensors, the costs for the
+    intra-in-P decision and the recon planes.
     """
     dev = y.device
     n_mb = mb_w * mb_h
     H, W = y.shape
     ry, ru, rv = pad_ref(ref_y), pad_ref(ref_u), pad_ref(ref_v)
-    lam_mb = _const("qp_cost", dev)[
-        qp_tensor(qp, dev).clamp(0, 51).long()].expand(n_mb)
-    int_mv, mvp_qx, mvp_qy = _fullpel_search(y, ry, mb_w, mb_h, sr, lam_mb)
+    qp = qp_tensor(qp, dev)
+    qp_c = qp_tensor(qp_c, dev)
+    lam_mb = _const("qp_cost", dev)[qp.clamp(0, 51).long()].expand(n_mb)
+    int_mv, mvp_qx, mvp_qy = _fullpel_search(y, ry, mb_w, mb_h, sr, lam_mb,
+                                             row_off)
     ar = torch.arange(n_mb, device=dev)
     mby, mbx = ar // mb_w, ar % mb_w
 
     # ---- quarter-pel refinement over the full +-3 quarter box ----
-    gy = PAD - 3 + mby * 16 + int_mv[:, 1]
+    gy = PAD - 3 + row_off + mby * 16 + int_mv[:, 1]
     gx = PAD - 3 + mbx * 16 + int_mv[:, 0]
     planes = _halfpel_planes(gather_windows(ry, gy, gx, 24).permute(1, 2, 0))
     src_soa = _soa(y, 16, mb_w, mb_h)
@@ -792,10 +803,29 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp, qp_c,
     pred_soa = _qpel_select(planes, _const_q("cand_a", dev)[best_q],
                             _const_q("cand_b", dev)[best_q])
 
+    if extra_mv is not None:
+        # screen-content global candidate (core_jax.py:890-912): whole-MB
+        # window at the scroll vector, only where it lies in the plane
+        emv = torch.as_tensor(np.asarray(extra_mv, np.int32), device=dev)
+        ei = emv >> 2
+        gye = PAD + row_off + mby * 16 + ei[1]
+        gxe = PAD + mbx * 16 + ei[0]
+        Hp, Wp = ry.shape
+        valid_e = (gye >= 0) & (gye <= Hp - 16) & (gxe >= 0) & \
+            (gxe <= Wp - 16)
+        pred_e = gather_windows(ry, gye.clamp(0, Hp - 16),
+                                gxe.clamp(0, Wp - 16), 16).permute(1, 2, 0)
+        bits_e = _se_nbits(emv[0] - mvp_qx) + _se_nbits(emv[1] - mvp_qy)
+        cost_e = _satd16(src_soa - pred_e) + lam_mb * bits_e
+        take = valid_e & (cost_e < best_cost)
+        best_mv = torch.where(take[:, None], emv[None, :], best_mv)
+        pred_soa = torch.where(take[None, None, :], pred_e, pred_soa)
+        best_cost = torch.where(take, cost_e, best_cost)
+
     # ---- early-skip promotion (core_jax.py:914-1017) ----
     skip_q = _skip_mv_field(best_mv, mb_w, mb_h)               # [N,2]
     sk_int = skip_q >> 2
-    gy2 = PAD - 3 + mby * 16 + sk_int[:, 1]
+    gy2 = PAD - 3 + row_off + mby * 16 + sk_int[:, 1]
     gx2 = PAD - 3 + mbx * 16 + sk_int[:, 0]
     planes2 = _halfpel_planes(
         gather_windows(ry, gy2, gx2, 24).permute(1, 2, 0))
@@ -807,7 +837,7 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, qp, qp_c,
     def chroma_pred(refc, mv_q):
         cfx = (mv_q[:, 0] % 8)[None, None, :]
         cfy = (mv_q[:, 1] % 8)[None, None, :]
-        cgy = PAD + mby * 8 + (mv_q[:, 1] >> 3)
+        cgy = PAD + (row_off >> 1) + mby * 8 + (mv_q[:, 1] >> 3)
         cgx = PAD + mbx * 8 + (mv_q[:, 0] >> 3)
         Wn = gather_windows(refc, cgy, cgx, 10).permute(1, 2, 0)  # [10,10,N]
         return ((8 - cfx) * (8 - cfy) * Wn[0:8, 0:8]

@@ -1,5 +1,7 @@
 """The port's CUDA kernels: their contract on the CPU, and their
-equality with the plain PyTorch versions on a GPU.
+equality with the plain PyTorch versions on a GPU; the host encoder and
+the API on a GPU against the same on the CPU, and the host C build on
+the GPU's machine.
 
 This file imports nothing of JAX, so the card's tests also run on a
 machine without it:
@@ -148,3 +150,113 @@ def test_cuda_wrapper_rejects_misaligned_planes():
     with pytest.raises(ValueError):
         dc.deblock_frame_cuda(y, *args[1:], 6, 5)
     assert dc.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# The host encoder (H264Encoder) and the API on the card
+# ---------------------------------------------------------------------------
+HW, HH = 96, 64
+
+
+def _host_frames(n, scroll=0, seed=0):
+    """Textured moving content (or, with scroll, content scrolling
+    `scroll` rows a frame with rows that repeat exactly)."""
+    rng = np.random.default_rng(seed)
+    tall = rng.integers(0, 256, (4 * HH, HW + 16))
+    yy, xx = np.mgrid[0:4 * HH, 0:HW + 16]
+    tex = (tall // 3 + 60 * np.sin(xx / 5.0) + 40 * np.cos(yy / 7.0)
+           + 80).clip(0, 255)
+    cy, cx = np.mgrid[0:HH // 2, 0:HW // 2]
+    out = []
+    for i in range(n):
+        if scroll:
+            y = tex[HH + scroll * i:2 * HH + scroll * i, :HW]
+        else:
+            y = tex[HH + i:2 * HH + i, i:i + HW] + rng.integers(-2, 3,
+                                                               (HH, HW))
+        u = (cx * 3 + cy + 2 * i) % 256
+        v = (200 - cx - 2 * cy + i) % 256
+        out.append(tuple(np.clip(a, 0, 255).astype(np.uint8)
+                         for a in (y, u, v)))
+    return out
+
+
+_HOST_CONFIGS = {
+    "i4x4_intra_in_p": (dict(qp=26, enable_i4x4=True), 0, {}),
+    "slices3_rc": (dict(qp=28, num_slices=3, rc_mode=1,
+                        target_bitrate=400_000, temporal_layers=2), 0, {}),
+    "screen_aq_ltr": (dict(qp=28, usage_type=1, rc_mode=1,
+                           target_bitrate=400_000,
+                           enable_adaptive_quant=True, enable_gom_rc=True,
+                           enable_ltr=True, ltr_mark_period=2),
+                      8, {3: "ltr_recovery_request"}),
+    "sizelimited": (dict(qp=26, slice_size_constraint=200), 0, {}),
+}
+
+
+def _host_stream(kw, scroll, calls, device):
+    from openh264_tpu_torch.encoder.config import EncoderConfig
+    from openh264_tpu_torch.encoder.encoder import H264Encoder
+    enc = H264Encoder(EncoderConfig(width=HW, height=HH, **kw),
+                      device=device)
+    out = []
+    for i, f in enumerate(_host_frames(5, scroll)):
+        if i in calls:
+            getattr(enc, calls[i])()
+        out.append(enc.encode_frame(*f))
+    return out, enc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_HOST_CONFIGS))
+def test_cuda_host_encoder_matches_cpu(name):
+    """H264Encoder on the card writes the CPU path's bytes, keeps the
+    same DPB, and launches the deblock kernel once per deblocked
+    frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    kw, scroll, calls = _HOST_CONFIGS[name]
+    want, cpu = _host_stream(dict(kw), scroll, calls, "cpu")
+    n0 = dc.launches
+    got, gpu = _host_stream(dict(kw), scroll, calls, "cuda")
+    assert dc.launches - n0 == sum(1 for b in got if b)
+    assert got == want
+    for a, b in zip(gpu.dpb, cpu.dpb):
+        for p, q in zip(a.planes, b.planes):
+            assert p.is_cuda and torch.equal(p.cpu(), q)
+
+
+@pytest.mark.cuda
+def test_cuda_api_matches_cpu():
+    """CWelsH264SVCEncoder on the card (one CAVLC slice, so I4x4 in host
+    C on the IDR) writes the CPU path's bytes and the same statistics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from openh264_tpu_torch.api import (ENCODER_OPTION, SEncParamExt,
+                                        WelsCreateSVCEncoder)
+    res = {}
+    for d in ("cpu", "cuda"):
+        api = WelsCreateSVCEncoder(device=d)
+        assert api.InitializeExt(SEncParamExt(
+            iPicWidth=HW, iPicHeight=HH, iRCMode=-1, iInitialQp=26)) == 0
+        n0 = dc.launches
+        bs = [api.EncodeFrame(*f) for f in _host_frames(4)]
+        st = api.GetOption(ENCODER_OPTION.GET_STATISTICS)
+        res[d] = (bs, st.fAveragePsnrY, st.iTotalEncodedBytes,
+                  dc.launches - n0)
+    assert res["cuda"][:3] == res["cpu"][:3]
+    assert res["cuda"][3] == 4 and res["cpu"][3] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_machine_builds_host_c():
+    """The host C (I4x4 intra decision, bit packer) builds with the card
+    machine's host compiler and runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from openh264_tpu_torch import _build, native
+    _build.build("host_native")
+    out = np.zeros(8, np.uint8)
+    assert native.bitpack(np.array([5, 1], np.uint32),
+                          np.array([3, 1], np.uint8), out, 0) == 4
+    assert out[0] == 0b10110000

@@ -25,7 +25,19 @@ Phases, each fatal on failure:
      size-limited slices), 2 timed runs of 8 frames each (frames/s), the
      deblock kernel's launches against the deblocked frames of each run,
      the CUDA stream against the CPU stream over 3 frames, and a
-     torch.profiler device-busy share over 2 more P frames.
+     torch.profiler device-busy share over 2 more P frames;
+  7. the rest of the encoder side at 720p: CABAC through the API and
+     through H264Encoder with 4 fixed slices and bitrate RC (frames/s,
+     IDR and P seconds, deblock launches per deblocked frame); 3-layer
+     simulcast, serial and with one thread per layer (threaded equal to
+     serial); GOP parallelism on two threads against the serial session;
+     the processing functions (denoise, downsampling, background
+     detection, rotation), each CUDA equal to CPU and timed with CUDA
+     events. Then, all at once and untimed: the h264enc console as a
+     subprocess, whose file must equal the API's stream for the
+     console's parameters, and the CPU encodes of the first 2 frames of
+     the CABAC and simulcast runs in worker processes, which must equal
+     the CUDA bytes.
 It prints a `kernels` JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a GPU, or without the package beside it, it exits non-zero and
@@ -35,10 +47,14 @@ prints no result.
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +66,11 @@ REPEATS = 2            # timed runs of each main-path config
 HOST_FRAMES = 8        # per host-encoder run: 1 IDR + 7 P
 HOST_REPEATS = 2       # timed runs of each host-encoder config
 SCROLL_ROWS = 8        # screen content scrolls this many rows a frame
+REST_FRAMES = 4        # phase 7 runs: 1 IDR + 3 P
+REST_CROSS = 2         # phase 7 frames encoded on both CUDA and the CPU
+REST_SEED = 2024       # phase 7 content
+GOP_FRAMES = 8         # phase 7 GOP parallelism: 2 closed GOPs of 4
+CPU_THREADS = 2        # torch threads of each CPU cross-check process
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, used for 32-bit integer work
 HBM_BYTES_PER_S = 3.35e12
@@ -407,7 +428,7 @@ def host_encoder(kind: str, kw: dict, dev):
         api = WelsCreateSVCEncoder(device=dev)
         if api.InitializeExt(SEncParamExt(iPicWidth=W720, iPicHeight=H720,
                                           **kw)) != 0:
-            fail("InitializeExt refused the api_cavlc parameters")
+            fail(f"InitializeExt refused the API parameters {kw}")
         return api.EncodeFrame, api._enc
     from openh264_tpu_torch.encoder.config import EncoderConfig
     from openh264_tpu_torch.encoder.encoder import H264Encoder
@@ -502,6 +523,273 @@ def phase_host_encoder(dev, card: str):
     return out, launches
 
 
+def _timed_host_run(name, kind, kw, dev, fr, card):
+    """One timed run of the host encoder / API: its bytes per frame, and
+    frames/s, IDR and median P seconds; the deblock kernel must launch
+    once per deblocked frame."""
+    import torch
+    from openh264_tpu_torch.encoder import deblock_cuda
+    deblock_cuda.launches = 0
+    t0 = time.perf_counter()
+    bs, secs, _encode = host_encode(kind, kw, dev, fr, {})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_launch = deblock_cuda.launches
+    coded = sum(1 for b in bs if b)
+    print(f"rest {name}: {len(fr)} frames {W720}x{H720} in {dt:.3f} s = "
+          f"{len(fr) / dt:.3f} frames/s ({coded} coded, "
+          f"{sum(map(len, bs))} bytes) on {card}; IDR {secs[0]:.3f} s, P "
+          f"{[round(t, 3) for t in secs[1:]]} s; deblock kernel launches "
+          f"{n_launch}")
+    if coded < len(fr) // 2 or not all(
+            b.startswith(b"\x00\x00\x00\x01") for b in bs if b):
+        fail(f"{name}: {coded} of {len(fr)} frames coded as Annex-B")
+    if n_launch != coded:
+        fail(f"{name}: deblock kernel launched {n_launch} times for {coded} "
+             f"deblocked frames")
+    return bs, {"fps": len(fr) / dt, "seconds": dt, "idr_s": secs[0],
+            "p_s": secs[1:], "p_s_median": statistics.median(secs[1:]),
+            "bytes": sum(map(len, bs)), "deblock_launches": n_launch}
+
+
+REST_CONFIGS = {
+    # the API with CABAC: one slice, RC off, QP 28 (no I4x4: CAVLC-only)
+    "api_cabac": ("api", dict(iEntropyCodingModeFlag=1, iRCMode=-1,
+                              iInitialQp=28)),
+    # H264Encoder with CABAC, 4 fixed slices, bitrate RC at 4 Mbit/s
+    "host_cabac_4slice_rc": ("host", dict(qp=28, entropy_cabac=True,
+                                          num_slices=4, rc_mode=1,
+                                          target_bitrate=4_000_000,
+                                          max_frame_rate=30.0)),
+}
+
+
+def simulcast_encoder(**kw):
+    """3 layers (1280x720, 640x360, 320x180) at QP 28, CAVLC."""
+    from openh264_tpu_torch.encoder.config import EncoderConfig
+    from openh264_tpu_torch.parallel import SimulcastEncoder
+    return SimulcastEncoder(EncoderConfig(width=W720, height=H720, qp=28), 3,
+                            **kw)
+
+
+def phase_simulcast(dev, fr, card):
+    """Simulcast serial on the card, and threaded with every layer on
+    cuda:0, which must equal serial. Returns the summary, the serial
+    bytes and the deblock launches."""
+    import torch
+    from openh264_tpu_torch.encoder import deblock_cuda
+    runs, streams = {}, {}
+    for mode, kw in (("serial", dict(device=dev)),
+                     ("threaded", dict(devices=[f"{dev}:0"] * 3))):
+        sim = simulcast_encoder(**kw)
+        deblock_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = [sim.encode_frame(*f)[1] for f in fr]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        sim.close()
+        n_launch = deblock_cuda.launches
+        coded = sum(1 for layers in out for b in layers if b)
+        print(f"rest simulcast {mode}: {len(fr)} frames x 3 layers "
+              f"({[(e.cfg.width, e.cfg.height) for e in sim.encoders]}) in "
+              f"{dt:.3f} s = {len(fr) / dt:.3f} frames/s, "
+              f"{sum(len(b) for layers in out for b in layers)} bytes on "
+              f"{card}; deblock kernel launches {n_launch}")
+        if n_launch != coded:
+            fail(f"simulcast {mode}: deblock kernel launched {n_launch} "
+                 f"times for {coded} deblocked layer frames")
+        runs[mode] = {"fps": len(fr) / dt, "seconds": dt,
+                      "deblock_launches": n_launch}
+        streams[mode] = out
+    if streams["threaded"] != streams["serial"]:
+        fail("simulcast: threaded layers differ from serial")
+    print("rest simulcast: threaded equals serial")
+    return runs, streams["serial"], sum(r["deblock_launches"]
+                                        for r in runs.values())
+
+
+def phase_gop(dev, card):
+    """GopParallelEncoder (idr_interval 4, two threads on cuda:0) on
+    GOP_FRAMES frames against the serial DeviceSessionEncoder."""
+    import torch
+    from openh264_tpu_torch.encoder import deblock_cuda
+    from openh264_tpu_torch.encoder.config import EncoderConfig
+    from openh264_tpu_torch.encoder.session_device import \
+        DeviceSessionEncoder
+    from openh264_tpu_torch.parallel import GopParallelEncoder
+    fr = frames_720p(GOP_FRAMES, seed=REST_SEED)
+    cfg = lambda: EncoderConfig(width=W720, height=H720, qp=28,  # noqa: E731
+                                idr_interval=4)
+    out, streams, launches = {}, {}, 0
+    for mode, run in (
+            ("gop_parallel", lambda: GopParallelEncoder(
+                cfg(), devices=[f"{dev}:0"] * 2).encode_stream(iter(fr))),
+            ("serial", lambda: DeviceSessionEncoder(
+                cfg(), device=dev).encode_stream(iter(fr)))):
+        deblock_cuda.launches = 0
+        t0 = time.perf_counter()
+        bs = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_launch = deblock_cuda.launches
+        coded = sum(1 for b in bs if b)
+        print(f"rest {mode}: {len(fr)} frames {W720}x{H720} in {dt:.3f} s = "
+              f"{len(fr) / dt:.3f} frames/s ({sum(map(len, bs))} bytes) on "
+              f"{card}; deblock kernel launches {n_launch}")
+        if n_launch != coded:
+            fail(f"{mode}: deblock kernel launched {n_launch} times for "
+                 f"{coded} deblocked frames")
+        launches += n_launch
+        out[mode] = {"fps": len(fr) / dt, "seconds": dt,
+                     "deblock_launches": n_launch}
+        streams[mode] = bs
+    if streams["gop_parallel"] != streams["serial"]:
+        fail("GOP-parallel stream differs from the serial session's")
+    print("rest gop: two-thread GOP-parallel stream equals the serial one")
+    return out, launches
+
+
+def phase_processing(dev, fr, card):
+    """The processing functions on the 720p planes: CUDA equal to CPU for
+    each, and CUDA-event times (median of 10 runs)."""
+    import torch
+    from openh264_tpu_torch.processing import (
+        background_division, denoise_frame, dyadic_downsample,
+        general_bilinear_downsample, rotate_image, vaa_calc)
+    cases = {
+        "denoise_frame": lambda y, u, v, y1: denoise_frame(y, u, v),
+        "dyadic_downsample_1": lambda y, u, v, y1: dyadic_downsample(y, 1),
+        "dyadic_downsample_2": lambda y, u, v, y1: dyadic_downsample(y, 2),
+        "general_bilinear_960x540": lambda y, u, v, y1:
+            general_bilinear_downsample(y, 540, 960),
+        "general_bilinear_640x352": lambda y, u, v, y1:
+            general_bilinear_downsample(y, 352, 640),
+        "background_division": lambda y, u, v, y1:
+            background_division(vaa_calc(y1, y)),
+        "rotate_90": lambda y, u, v, y1: rotate_image(y, 90).contiguous(),
+        "rotate_180": lambda y, u, v, y1: rotate_image(y, 180).contiguous(),
+        "rotate_270": lambda y, u, v, y1: rotate_image(y, 270).contiguous(),
+    }
+    host = [torch.from_numpy(p) for p in fr[0]] + [torch.from_numpy(fr[1][0])]
+    card_in = [t.to(dev) for t in host]
+
+    def flat(r):
+        if isinstance(r, dict):
+            return [r[k] for k in sorted(r)]
+        return list(r) if isinstance(r, tuple) else [r]
+    out = {}
+    for name, fn in cases.items():
+        want = flat(fn(*host))
+        got = flat(fn(*card_in))
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            fail(f"processing {name}: CUDA and CPU differ")
+        ms, _all = cuda_ms(fn, runs=10, setup=lambda: card_in)
+        print(f"rest processing {name}: CUDA equals CPU; {ms:.4f} ms on "
+              f"{card}")
+        out[name] = ms
+    return out
+
+
+def cpu_streams(name, frames):
+    """In a worker process: the CPU bytes of `frames` for the phase 7 run
+    `name` (a REST_CONFIGS entry or "simulcast"), and their seconds."""
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+    sys.path.insert(0, str(ROOT))
+    t0 = time.perf_counter()
+    if name == "simulcast":
+        sim = simulcast_encoder(device="cpu")
+        bs = [sim.encode_frame(*f)[1] for f in frames]
+    else:
+        kind, kw = REST_CONFIGS[name]
+        bs = host_encode(kind, kw, "cpu", frames, {})[0]
+    return bs, time.perf_counter() - t0
+
+
+def phase_cli(dev, fr, card):
+    """The h264enc console as a subprocess on the CUDA device: its file
+    must equal the in-process API's stream for the SEncParamExt that the
+    console builds from the same arguments, which this process encodes
+    while the console runs."""
+    from openh264_tpu_torch.api import WelsCreateSVCEncoder
+    from openh264_tpu_torch.cli.h264enc import encoder_param, settings
+    with tempfile.TemporaryDirectory() as tmp:
+        yuv, out = os.path.join(tmp, "in.yuv"), os.path.join(tmp, "out.264")
+        with open(yuv, "wb") as f:
+            for y, u, v in fr:
+                f.write(y.tobytes() + u.tobytes() + v.tobytes())
+        argv = ["-org", yuv, "-sw", str(W720), "-sh", str(H720), "-bf", out,
+                "-frms", str(len(fr)), "-rc", "-1", "-cabac", "1"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m",
+                                 "openh264_tpu_torch.cli.h264enc", *argv],
+                                cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            api = WelsCreateSVCEncoder(device=dev)
+            if api.InitializeExt(encoder_param(settings(argv)[0])) != 0:
+                fail("InitializeExt refused the console's parameters")
+            want = b"".join(api.EncodeFrame(*f) for f in fr)
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        dt = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"h264enc exited {proc.returncode}: {stderr[-2000:]}")
+        fps = [ln.strip() for ln in stdout.splitlines()
+               if ln.startswith("FPS:")] or ["(no FPS line)"]
+        print(f"rest cli: h264enc -cabac 1, {len(fr)} frames {W720}x{H720} "
+              f"in {dt:.2f} s with start-up, beside the in-process encode "
+              f"and the CPU cross-checks; its {fps[0]} on {card}")
+        with open(out, "rb") as f:
+            got = f.read()
+    if got != want:
+        fail(f"h264enc file ({len(got)} B) differs from the API's stream "
+             f"({len(want)} B)")
+    print(f"rest cli: file equals the in-process API stream ({len(got)} B)")
+    return {"seconds_with_startup": dt,
+            "fps_line": fps[0],
+            "bytes": len(got)}
+
+
+def phase_rest(dev, card):
+    """Phase 7: CABAC (API, H264Encoder with 4 slices and RC), simulcast,
+    GOP parallelism and the processing functions at 720p, timed one by
+    one; then the console and the CPU cross-checks, untimed and at once.
+    Returns the summary and the deblock launches of the timed runs."""
+    fr = frames_720p(REST_FRAMES, seed=REST_SEED)
+    out, cuda_bytes, launches = {}, {}, 0
+    for name, (kind, kw) in REST_CONFIGS.items():
+        cuda_bytes[name], out[name] = _timed_host_run(name, kind, kw, dev,
+                                                      fr, card)
+        launches += out[name]["deblock_launches"]
+    out["simulcast"], cuda_bytes["simulcast"], n = phase_simulcast(dev, fr,
+                                                                   card)
+    launches += n
+    out["gop"], n = phase_gop(dev, card)
+    launches += n
+    out["processing_ms"] = phase_processing(dev, fr, card)
+    # a fresh encoder's first frames equal the timed run's first frames,
+    # so the timed runs are the CUDA side of the cross-checks
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(cuda_bytes), mp_context=spawn) as pool:
+        jobs = {name: pool.submit(cpu_streams, name, fr[:REST_CROSS])
+                for name in cuda_bytes}
+        out["cli"] = phase_cli(dev, fr, card)
+        for name, job in jobs.items():
+            bs, secs = job.result()
+            print(f"rest cross-check {name}: cpu encoded {REST_CROSS} "
+                  f"frames in {secs:.2f} s ({CPU_THREADS} torch threads, "
+                  f"beside the other checks)")
+            if bs != cuda_bytes[name][:REST_CROSS]:
+                fail(f"{name}: CUDA and CPU streams differ")
+            print(f"rest cross-check {name}: CUDA and CPU Annex-B "
+                  f"byte-identical")
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -520,10 +808,12 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    seconds, log = _build.build("deblock")
-    print(f"build deblock: {seconds:.2f} s\n{log.strip()}")
-    seconds, log = _build.build("host_native")
-    print(f"build host_native (host C, cc): {seconds:.2f} s {log.strip()}")
+    # nvcc and cc at once, one thread each
+    with ThreadPoolExecutor(2) as ex:
+        builds = list(ex.map(_build.build, ("deblock", "host_native")))
+    print(f"build deblock: {builds[0][0]:.2f} s\n{builds[0][1].strip()}")
+    print(f"build host_native (host C, cc): {builds[1][0]:.2f} s "
+          f"{builds[1][1].strip()}")
 
     t0 = time.perf_counter()
     kern = phase_kernels(dev)
@@ -541,11 +831,20 @@ def main():
     print(f"phase host encoder: {time.perf_counter() - t0:.1f} s")
     if host_launches == 0:
         fail("the host encoder path never launched the deblock kernel")
-    kern["launches"] = launches + host_launches
+    t0 = time.perf_counter()
+    rest, rest_launches = phase_rest(dev, card)
+    print(f"phase rest: {time.perf_counter() - t0:.1f} s")
+    if rest_launches == 0:
+        fail("the phase 7 paths never launched the deblock kernel")
+    kern["launches"] = launches + host_launches + rest_launches
+    kern["launches_by_phase"] = {"main path": launches,
+                                 "host encoder": host_launches,
+                                 "rest": rest_launches}
     print(f"main path summary: "
           f"{json.dumps({'card': card, 'configs': main_path})}")
     print(f"host encoder summary: "
           f"{json.dumps({'card': card, 'configs': host_path})}")
+    print(f"rest summary: {json.dumps({'card': card, 'configs': rest})}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kern]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,11 @@ and never by nvcc. Builds happen at first use, into
 `build/openh264_tpu_torch/` beside the package (git-ignored); the file
 name carries a hash of the source and flags, so an edited source
 rebuilds and an unchanged one loads at once. A failed build raises.
+Builds and loads are safe from several threads (simulcast layers and
+GOP sessions build at first use): a lock per library serialises its
+build and load in a process, so that different libraries may build at
+once, and each build writes a temporary file named by process and
+thread before it moves the library into place.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +32,13 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
+_LOCKS: dict[str, threading.RLock] = {}
+_LOCKS_LOCK = threading.Lock()
+
+
+def _lock(name: str) -> threading.RLock:
+    with _LOCKS_LOCK:
+        return _LOCKS.setdefault(name, threading.RLock())
 
 
 def _nvcc() -> str:
@@ -65,27 +78,35 @@ def build(name: str) -> tuple[float, str]:
     """Compiles csrc/<name>.cu (nvcc) or csrc/<name>.c (cc) unless it is
     already built. Returns the build's seconds (0.0 when cached) and the
     compiler's output (for nvcc: registers, shared memory, spills)."""
-    out = _target(name)
-    if out.exists():
-        return 0.0, "(cached)"
-    src, flags = _source(name)
-    compiler = _nvcc() if src.suffix == ".cu" else _cc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    res = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"{Path(compiler).name} failed for "
-                           f"csrc/{src.name}:\n{res.stdout}")
-    os.replace(tmp, out)
-    return time.perf_counter() - t0, res.stdout
+    with _lock(name):
+        out = _target(name)
+        if out.exists():
+            return 0.0, "(cached)"
+        src, flags = _source(name)
+        compiler = _nvcc() if src.suffix == ".cu" else _cc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # another process may build the same library at the same time:
+        # each writes its own file and the last move wins
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        t0 = time.perf_counter()
+        res = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{Path(compiler).name} failed for "
+                               f"csrc/{src.name}:\n{res.stdout}")
+        os.replace(tmp, out)
+        return time.perf_counter() - t0, res.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of csrc/<name>.cu or .c, built first if
+    needed; loaded once per process."""
+    with _lock(name):
+        return _load(name)
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The shared library of csrc/<name>.cu or .c, built first if
-    needed."""
+def _load(name: str) -> ctypes.CDLL:
     build(name)
     return ctypes.CDLL(str(_target(name)))

@@ -58,6 +58,12 @@ class BitWriter:
             bits = np.concatenate([bits, rem])
         return bits
 
+    def byte_align(self, bit: int = 0) -> None:
+        """Pad with `bit` to the next byte boundary (e.g. CABAC
+        cabac_alignment_one_bit, §7.3.4)."""
+        while self._accbits % 8:
+            self.u(1, bit)
+
     def ue(self, v: int) -> None:
         if v < 0:
             raise ValueError("ue(v) requires v >= 0")
@@ -79,6 +85,16 @@ class BitWriter:
         self.u(1, 1)
         while not self.byte_aligned():
             self.u(1, 0)
+
+    def put_bytes(self, data: bytes) -> None:
+        """Append whole bytes (writer must be byte-aligned)."""
+        if self._accbits % 8:
+            raise ValueError("put_bytes requires byte alignment")
+        if self._accbits:
+            self._chunks.append(self._acc.to_bytes(self._accbits // 8, "big"))
+            self._acc = 0
+            self._accbits = 0
+        self._chunks.append(data)
 
     def get_bytes(self) -> bytes:
         """Return the RBSP bytes; requires byte alignment."""

@@ -1,2 +1,3 @@
 """Decoder-side data structures that the host encoder's writers share:
-FrameSymbols and MV prediction (copied from openh264_tpu/decoder)."""
+FrameSymbols, MV prediction and the CABAC context tables (copied from
+openh264_tpu/decoder)."""

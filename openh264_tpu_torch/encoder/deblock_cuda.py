@@ -18,14 +18,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from .. import _build
 
 # calls that launched the kernel: one per deblocked frame, and each call
-# is one kernel launch
+# is one kernel launch; counted under a lock, since simulcast layers and
+# GOP sessions launch from several threads
 launches = 0
+_launches_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,5 +93,6 @@ def deblock_frame_cuda(y, u, v, BSV, BSH, qp_mb, cqp_mb,
                      stream)
     if err != 0:
         raise RuntimeError(f"deblock kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return y, u, v

@@ -10,9 +10,9 @@ stay there. In-loop deblocking runs through the port's deblock kernel
 fetched: the host writes the headers and the slice bodies from them,
 per MB or vectorised (cavlc_vec), as the JAX encoder does. I frames
 with enable_i4x4 run the I16x16-vs-I4x4 decision in host C (native.py).
-
-CABAC is not ported yet: entropy_cabac=True raises NotImplementedError
-(ROADMAP.md, queue A).
+With entropy_cabac the slice bodies are written per bin by the CABAC
+slice writer (cabac_enc.py), on the one-slice and fixed-slice paths;
+the profile rises to Main (77) and I frames take the I16 wavefront.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from ..bitstream import (BitWriter, make_annexb_nal, NAL_SPS, NAL_PPS,
                          NAL_IDR, NAL_SLICE)
+from ..decoder.cabac import CHROMA_AC, CHROMA_DC, I16_AC, I16_DC, LUMA_4x4
 from ..decoder.framedata import (FrameSymbols, MB_I4x4, MB_I16x16,
                                  MB_P16x16)
 from ..decoder.mvpred import MvContext
@@ -31,6 +32,7 @@ from ..device import resolve_device
 from ..tables import CHROMA_QP_TABLE, ZIGZAG_4x4, ZSCAN_TO_RASTER
 from ..tables.cavlc import CBP_INTER_INV, CBP_INTRA_INV
 from . import core_torch
+from .cabac_enc import CabacSliceWriter
 from .cavlc_enc import write_residual_block
 from .cavlc_vec import assemble_rbsp, write_p_slice_tokens
 from .config import EncoderConfig
@@ -119,16 +121,19 @@ def _cbp_luma_p(luma_ac) -> int:
 
 
 class H264Encoder:
-    """CAVLC H.264 encoder on `device` (default "cuda"; without a GPU the
-    default raises, and device="cpu" runs the plain PyTorch path)."""
+    """CAVLC or CABAC H.264 encoder on `device` (default "cuda"; without
+    a GPU the default raises, and device="cpu" runs the plain PyTorch
+    path)."""
 
     def __init__(self, cfg: EncoderConfig, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
-        if cfg.entropy_cabac:
-            raise NotImplementedError(
-                "CABAC is not ported to openh264_tpu_torch yet (ROADMAP.md, "
-                "queue A); use entropy_cabac=False")
+        if cfg.entropy_cabac and cfg.profile_idc == 66:
+            # CABAC is prohibited in Baseline (Annex A.2.1): Main, like the
+            # reference (encoder_ext.cpp:655-662)
+            cfg.profile_idc = 77
+        if cfg.slice_size_constraint > 0 and cfg.entropy_cabac:
+            raise ValueError("SM_SIZELIMITED slicing is CAVLC-only here")
         if cfg.slice_size_constraint > 0 and cfg.num_slices > 1:
             raise ValueError("slice_size_constraint and num_slices are "
                              "mutually exclusive slice modes")
@@ -660,10 +665,11 @@ class H264Encoder:
     # ------------------------------------------------------------------
     def _encode_i(self, host, dev):
         """One single-slice IDR: I16x16-vs-I4x4 in host C with
-        enable_i4x4, else the device I16 wavefront. Returns the symbols
-        (numpy) with the recon planes (device) and the slice RBSP."""
+        enable_i4x4 under CAVLC, else the device I16 wavefront. Returns
+        the symbols (numpy) with the recon planes (device) and the slice
+        RBSP."""
         cfg = self.cfg
-        if cfg.enable_i4x4:
+        if cfg.enable_i4x4 and not cfg.entropy_cabac:
             from ..native import enc_intra_frame_native
             out = enc_intra_frame_native(
                 *host, self.qp, self.qp_c,
@@ -688,6 +694,9 @@ class H264Encoder:
                            True, self.idr_pic_id,
                            disable_deblock=cfg.deblock_idc,
                            long_term_ref_flag=cfg.enable_ltr)
+        if cfg.entropy_cabac:
+            self._write_i_slice_cabac(w, out, mb_h)
+            return w.get_bytes()
         nc = _NcTracker(cfg.mb_width, mb_h)
         kind = out.get("kind")
         for idx in range(cfg.mb_width * mb_h):
@@ -784,6 +793,165 @@ class H264Encoder:
                     nc.nzc_c[comp, cy + by, cx + bx] = tc
         else:
             nc.nzc_c[:, cy:cy + 2, cx:cx + 2] = 0
+
+    # --- CABAC paths ---------------------------------------------------
+    def _mb_coeff_views(self, out, idx):
+        """CBP + scan-order coefficient views for one MB."""
+        luma_ac = out["luma_ac"][idx]
+        cdc = out["chroma_dc"][idx]
+        cac = out["chroma_ac"][idx]
+        cbp_chroma = 2 if cac.any() else (1 if cdc.any() else 0)
+        return luma_ac, cdc, cac, cbp_chroma
+
+    def _cabac_luma_ac(self, sw: CabacSliceWriter, out, idx, cbp_luma,
+                       is_i16: bool):
+        """Luma 4x4 AC/residual blocks in zscan order with per-block cbf."""
+        cfg = self.cfg
+        mbx, mby = idx % cfg.mb_width, idx // cfg.mb_width
+        gx, gy = mbx * 4, mby * 4
+        luma_ac = out["luma_ac"][idx]
+        prop = I16_AC if is_i16 else LUMA_4x4
+        for k in range(16):
+            r = int(ZSCAN_TO_RASTER[k])
+            bx, by = r % 4, r // 4
+            b8 = (by >> 1) * 2 + (bx >> 1)
+            if not (cbp_luma & (1 << b8)):
+                sw.nzc_l[gy + by, gx + bx] = 0
+                continue
+            coeffs = luma_ac[r][ZIGZAG_4x4]
+            if is_i16:
+                coeffs = coeffs[1:]
+            nz = int(np.count_nonzero(coeffs))
+            sw.cbf(idx, prop, 1 if nz else 0, gx + bx, gy + by)
+            if nz:
+                sw.residual_levels(prop, coeffs)
+            sw.nzc_l[gy + by, gx + bx] = nz
+
+    def _cabac_chroma(self, sw: CabacSliceWriter, out, idx, cbp_chroma):
+        cfg = self.cfg
+        mbx, mby = idx % cfg.mb_width, idx // cfg.mb_width
+        cx, cy = mbx * 2, mby * 2
+        if cbp_chroma:
+            for comp in range(2):
+                dc = out["chroma_dc"][idx, comp]
+                nz = dc.any()
+                sw.cbf(idx, CHROMA_DC, 1 if nz else 0, comp=comp,
+                       dc_bit=1 + comp)
+                if nz:
+                    sw.residual_levels(CHROMA_DC, dc)
+        if cbp_chroma == 2:
+            for comp in range(2):
+                for k in range(4):
+                    bx, by = k % 2, k // 2
+                    coeffs = out["chroma_ac"][idx, comp, k][ZIGZAG_4x4][1:]
+                    nz = int(np.count_nonzero(coeffs))
+                    sw.cbf(idx, CHROMA_AC, 1 if nz else 0, cx + bx, cy + by,
+                           comp=comp)
+                    if nz:
+                        sw.residual_levels(CHROMA_AC, coeffs)
+                    sw.nzc_c[comp, cy + by, cx + bx] = nz
+        else:
+            sw.nzc_c[:, cy:cy + 2, cx:cx + 2] = 0
+
+    def _write_i16_mb_cabac(self, sw: CabacSliceWriter, out, idx,
+                            p_slice: bool):
+        cfg = self.cfg
+        mbx, mby = idx % cfg.mb_width, idx // cfg.mb_width
+        luma_ac, cdc, cac, cbp_chroma = self._mb_coeff_views(out, idx)
+        cbp_luma = 15 if luma_ac.any() else 0
+        sw.mb_type_i16(idx, int(out["i16_mode"][idx]), bool(cbp_luma),
+                       cbp_chroma, p_slice)
+        sw.intra_chroma_pred_mode(idx, int(out["chroma_mode"][idx]))
+        sw.record_cbp(idx, cbp_luma | (cbp_chroma << 4))
+        sw.delta_qp(0)
+        dc = out["luma_dc"][idx].reshape(-1)[ZIGZAG_4x4]
+        nz_dc = dc.any()
+        sw.cbf(idx, I16_DC, 1 if nz_dc else 0, dc_bit=0)
+        if nz_dc:
+            sw.residual_levels(I16_DC, dc)
+        self._cabac_luma_ac(sw, out, idx, cbp_luma, is_i16=True)
+        self._cabac_chroma(sw, out, idx, cbp_chroma)
+        gx, gy = mbx * 4, mby * 4
+        sw.mvd[gy:gy + 4, gx:gx + 4] = 0
+        sw.mb_coded[idx] = True
+
+    def _write_i_slice_cabac(self, w: BitWriter, out, mb_h: int | None = None):
+        cfg = self.cfg
+        mb_h = cfg.mb_height if mb_h is None else mb_h
+        n_mb = cfg.mb_width * mb_h
+        w.byte_align(1)   # cabac_alignment_one_bit
+        sw = CabacSliceWriter(cfg.mb_width, mb_h, self.qp, is_i=True)
+        for idx in range(n_mb):
+            self._write_i16_mb_cabac(sw, out, idx, p_slice=False)
+            sw.end_of_slice(idx == n_mb - 1)
+        sw.eng.write_to(w)
+
+    def _write_p_slice_cabac(self, w: BitWriter, out, mb_h: int | None = None):
+        cfg = self.cfg
+        mb_w = cfg.mb_width
+        mb_h = cfg.mb_height if mb_h is None else mb_h
+        n_mb = mb_w * mb_h
+        w.byte_align(1)
+        sw = CabacSliceWriter(mb_w, mb_h, self.qp, is_i=False)
+        fs = FrameSymbols(mb_w, mb_h)
+        fs.slice_id[:] = 0
+        mvc = MvContext(fs, 0)
+        mb_qp_arr = out.get("mb_qp")
+        run_qp = self.qp
+        intra_mask = out.get("intra_mask")
+        for idx in range(n_mb):
+            mbx, mby = idx % mb_w, idx // mb_w
+            gx, gy = mbx * 4, mby * 4
+            fs.gwritten[gy:gy + 4, gx:gx + 4] = False
+            if intra_mask is not None and intra_mask[idx]:
+                sw.skip_flag(idx, 0)
+                self._write_i16_mb_cabac(sw, out, idx, p_slice=True)
+                fs.gmv[:, gy:gy + 4, gx:gx + 4] = 0
+                fs.gref[:, gy:gy + 4, gx:gx + 4] = -1
+                fs.gwritten[gy:gy + 4, gx:gx + 4] = True
+                fs.mb_type[idx] = MB_I16x16
+                sw.end_of_slice(idx == n_mb - 1)
+                continue
+            mv = out["mv"][idx].astype(np.int32)
+            luma_ac, cdc, cac, cbp_chroma = self._mb_coeff_views(out, idx)
+            cbp_luma = _cbp_luma_p(luma_ac)
+            cbp = cbp_luma | (cbp_chroma << 4)
+            skip_mv = mvc.pred_skip_mv(gx, gy, idx)
+            if cbp == 0 and mv[0] == skip_mv[0] and mv[1] == skip_mv[1]:
+                sw.skip_flag(idx, 1)
+                mvc.set_partition(gx, gy, 4, 4, 0, 0, mv)
+                sw.mvd[gy:gy + 4, gx:gx + 4] = 0
+                sw.nzc_l[gy:gy + 4, gx:gx + 4] = 0
+                sw.nzc_c[:, mby * 2:mby * 2 + 2, mbx * 2:mbx * 2 + 2] = 0
+                sw.record_cbp(idx, 0)
+                sw.mb_skip[idx] = True
+                sw.mb_coded[idx] = True
+                sw.last_dqp = 0
+                sw.end_of_slice(idx == n_mb - 1)
+                continue
+            sw.skip_flag(idx, 0)
+            sw.mb_type_p16x16()
+            mvp = mvc.pred_mv(gx, gy, 4, 4, 0, 0, idx)
+            mvd = (int(mv[0] - mvp[0]), int(mv[1] - mvp[1]))
+            sw.mvd_comp(idx, 0, gx, gy, mvd[0])
+            sw.mvd_comp(idx, 1, gx, gy, mvd[1])
+            sw.mvd[gy:gy + 4, gx:gx + 4] = mvd
+            mvc.set_partition(gx, gy, 4, 4, 0, 0, mv)
+            sw.write_cbp(idx, cbp)
+            if cbp:
+                want = int(mb_qp_arr[idx]) if mb_qp_arr is not None \
+                    else self.qp
+                sw.delta_qp(want - run_qp)
+                run_qp = want
+                self._cabac_luma_ac(sw, out, idx, cbp_luma, is_i16=False)
+                self._cabac_chroma(sw, out, idx, cbp_chroma)
+            else:
+                sw.last_dqp = 0
+                sw.nzc_l[gy:gy + 4, gx:gx + 4] = 0
+                sw.nzc_c[:, mby * 2:mby * 2 + 2, mbx * 2:mbx * 2 + 2] = 0
+            sw.mb_coded[idx] = True
+            sw.end_of_slice(idx == n_mb - 1)
+        sw.eng.write_to(w)
 
     # ------------------------------------------------------------------
     def _slide_window(self):
@@ -918,8 +1086,9 @@ class H264Encoder:
                        reorder_abs_diff: int | None = None,
                        mb_h: int | None = None, first_mb: int = 0,
                        mmco_ops=None, reorder_lt=None) -> bytes:
-        """Slice header, then the whole-slice vectorised CAVLC body
-        (cavlc_vec.py) packed by the host C bit packer."""
+        """Slice header, then the CABAC body, or the whole-slice
+        vectorised CAVLC body (cavlc_vec.py) packed by the host C bit
+        packer."""
         cfg = self.cfg
         mb_w = cfg.mb_width
         mb_h = cfg.mb_height if mb_h is None else mb_h
@@ -928,6 +1097,9 @@ class H264Encoder:
                            False, 0, disable_deblock=cfg.deblock_idc,
                            is_ref=is_ref, reorder_abs_diff=reorder_abs_diff,
                            reorder_long_term=reorder_lt, mmco_ops=mmco_ops)
+        if cfg.entropy_cabac:
+            self._write_p_slice_cabac(w, out, mb_h)
+            return w.get_bytes()
         out = dict(out)
         out["slice_qp"] = self.qp
         hdr_bits = w.bit_array()

@@ -119,11 +119,23 @@ def test_initialize_rejects_bad_parameters():
 
 
 def test_cabac_is_not_an_init_error():
-    """CABAC raises NotImplementedError out of InitializeExt in the port
-    (the JAX package codes it)."""
-    with pytest.raises(NotImplementedError):
-        tapi.WelsCreateSVCEncoder(device="cpu").InitializeExt(
-            _param(tparams, iEntropyCodingModeFlag=1))
+    """iEntropyCodingModeFlag=1 initialises and encodes CABAC as the JAX
+    API does: the same config (Main profile, no I4x4), the same parameter
+    sets, frames and statistics; with 2 fixed slices too. Size-limited
+    slicing (mode 4) under CABAC is an init-parameter error in both."""
+    p = _Pair()
+    assert p.init(iEntropyCodingModeFlag=1, iRCMode=-1, iInitialQp=27) == 0
+    cfg = p.t._enc.cfg
+    assert cfg.entropy_cabac and cfg.profile_idc == 77
+    assert not cfg.enable_i4x4
+    assert p.j.EncodeParameterSets() == p.t.EncodeParameterSets()
+    f = _frames(3, seed=3)
+    p.encode(f)
+    assert p.init(iEntropyCodingModeFlag=1, slice_mode=1, slice_num=2,
+                  iRCMode=1, iTargetBitrate=300_000) == 0
+    p.encode(f[:2])
+    assert p.init(iEntropyCodingModeFlag=1, slice_mode=4, size=700) == \
+        tapi.cmInitParaError
 
 
 def test_encode_force_idr_and_statistics():

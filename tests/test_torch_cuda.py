@@ -1,7 +1,8 @@
 """The port's CUDA kernels: their contract on the CPU, and their
 equality with the plain PyTorch versions on a GPU; the host encoder and
-the API on a GPU against the same on the CPU, and the host C build on
-the GPU's machine.
+the API (CAVLC and CABAC), threaded simulcast, GOP parallelism and the
+processing functions on a GPU against the same on the CPU, and the host
+C build on the GPU's machine.
 
 This file imports nothing of JAX, so the card's tests also run on a
 machine without it:
@@ -260,3 +261,99 @@ def test_cuda_machine_builds_host_c():
     assert native.bitpack(np.array([5, 1], np.uint32),
                           np.array([3, 1], np.uint8), out, 0) == 4
     assert out[0] == 0b10110000
+
+
+# ---------------------------------------------------------------------------
+# CABAC, simulcast, GOP parallelism and processing on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_cuda_api_cabac_matches_cpu():
+    """The API with iEntropyCodingModeFlag=1 on the card writes the CPU
+    path's bytes and statistics, one deblock launch per frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from openh264_tpu_torch.api import (ENCODER_OPTION, SEncParamExt,
+                                        WelsCreateSVCEncoder)
+    res = {}
+    for d in ("cpu", "cuda"):
+        api = WelsCreateSVCEncoder(device=d)
+        assert api.InitializeExt(SEncParamExt(
+            iPicWidth=HW, iPicHeight=HH, iRCMode=-1, iInitialQp=27,
+            iEntropyCodingModeFlag=1)) == 0
+        n0 = dc.launches
+        bs = [api.EncodeFrame(*f) for f in _host_frames(4, seed=3)]
+        st = api.GetOption(ENCODER_OPTION.GET_STATISTICS)
+        res[d] = (bs, st.fAveragePsnrY, api.EncodeParameterSets(),
+                  dc.launches - n0)
+    assert res["cuda"][:3] == res["cpu"][:3]
+    assert res["cuda"][3] == 4 and res["cpu"][3] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_threaded_simulcast_matches_cpu():
+    """Simulcast with every layer on the card, one thread per layer
+    (3 layers of 128x96, the last 32x24), equals the serial CPU run; the
+    deblock launches, counted from the threads, equal the layer frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from openh264_tpu_torch.encoder.config import EncoderConfig
+    from openh264_tpu_torch.parallel import SimulcastEncoder
+    rng = np.random.default_rng(4)
+    fr = [tuple(rng.integers(0, 256, s, np.uint8)
+                for s in ((96, 128), (48, 64), (48, 64))) for _ in range(3)]
+    cpu = SimulcastEncoder(EncoderConfig(width=128, height=96, qp=30), 3,
+                           device="cpu")
+    gpu = SimulcastEncoder(EncoderConfig(width=128, height=96, qp=30), 3,
+                           devices=["cuda", "cuda"])
+    n0 = dc.launches
+    try:
+        for f in fr:
+            assert gpu.encode_frame(*f) == cpu.encode_frame(*f)
+    finally:
+        gpu.close()
+    assert dc.launches - n0 == 9
+
+
+@pytest.mark.cuda
+def test_cuda_gop_parallel_matches_serial():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from openh264_tpu_torch.encoder.config import EncoderConfig
+    from openh264_tpu_torch.encoder.session_device import \
+        DeviceSessionEncoder
+    from openh264_tpu_torch.parallel import GopParallelEncoder
+    fr = _host_frames(6, seed=5)
+    cfg = lambda: EncoderConfig(width=HW, height=HH, qp=30,  # noqa: E731
+                                idr_interval=3)
+    got = GopParallelEncoder(cfg(), devices=["cuda", "cuda"]).encode_stream(
+        iter(fr))
+    assert got == DeviceSessionEncoder(cfg(), device="cpu").encode_stream(
+        iter(fr))
+
+
+@pytest.mark.cuda
+def test_cuda_processing_matches_cpu():
+    """Denoise, dyadic and general downsampling, background detection and
+    rotation give the CPU's results on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from openh264_tpu_torch import processing as P
+    f0, f1 = _host_frames(2, seed=6)
+    host = [torch.from_numpy(p) for p in f0] + [torch.from_numpy(f1[0])]
+    cases = [
+        lambda y, u, v, y1: P.denoise_frame(y, u, v),
+        lambda y, u, v, y1: (P.dyadic_downsample(y, 1),
+                             P.dyadic_downsample(y, 2),
+                             P.dyadic_downsample(y, 3)),
+        lambda y, u, v, y1: (P.general_bilinear_downsample(y, 48, 72),
+                             P.general_bilinear_downsample(y, 37, 50)),
+        lambda y, u, v, y1: tuple(P.background_division(
+            P.vaa_calc(y1, y)).values()),
+        lambda y, u, v, y1: tuple(P.rotate_image(y, d)
+                                  for d in (90, 180, 270)),
+    ]
+    for fn in cases:
+        want = fn(*host)
+        got = fn(*[t.cuda() for t in host])
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w)

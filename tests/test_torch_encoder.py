@@ -125,10 +125,14 @@ def test_ltr_recovery_without_ltr_forces_idr():
 
 
 def test_cabac_raises_not_implemented():
-    """CABAC is left for a later slice: NotImplementedError, which the
-    API does not turn into an init-parameter error."""
-    with pytest.raises(NotImplementedError):
-        TEnc(TCfg(width=W, height=H, entropy_cabac=True), device="cpu")
+    """CABAC, which the port once refused with NotImplementedError, now
+    encodes byte-identically with the JAX encoder: with enable_i4x4 set,
+    the IDR still takes the I16 wavefront (host C I4x4 is CAVLC-only),
+    and the profile rises to Main (tests/test_torch_cabac.py covers the
+    other CABAC paths)."""
+    bs = _run_pair(dict(qp=29, entropy_cabac=True, enable_i4x4=True),
+                   _frames(3, seed=6))
+    assert bs[0][5] == 77 and bs[0][4] & 0x1f == 7
 
 
 def test_default_device_needs_a_gpu():

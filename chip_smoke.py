@@ -8,10 +8,12 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the deblock kernel from csrc/deblock.cu with nvcc, and the
-     host C of the host encoder from csrc/host_native.c with cc;
+     host C of the host encoder and the decoder from csrc/host_native.c
+     and csrc/parse_cavlc.c with cc, all at once;
   3. each kernel against its plain PyTorch version on the card, exact
      equality, on many grids and in 50 repeats, and both timed with
-     CUDA events;
+     CUDA events; the deblock kernel also with the decoder's inputs
+     (per-MB alpha/beta offsets, separate Cb and Cr QPs), timed too;
   4. the main path: DeviceSessionEncoder(device="cuda").encode_stream on
      16 frames of synthetic 720p content in two configs, 2 timed runs
      each (frames/s), the kernels' launch counts over exactly each run,
@@ -37,7 +39,18 @@ Phases, each fatal on failure:
      subprocess, whose file must equal the API's stream for the
      console's parameters, and the CPU encodes of the first 2 frames of
      the CABAC and simulcast runs in worker processes, which must equal
-     the CUDA bytes.
+     the CUDA bytes;
+  8. the decoder: H264Decoder(device="cuda") on the Annex-B streams that
+     phases 4 and 6 wrote in their first timed runs (constqp and
+     rc_4slice_2tid, the four host-encoder configs), each decoded once
+     and constqp twice (frames/s, seconds per stage, one deblock launch
+     per decoded picture, frame count and cropped size), constqp's and
+     api_cavlc's frames equal to the encoder's own reconstruction, and a
+     torch.profiler device-busy share over 3 P frames of constqp; then,
+     all at once and untimed: the CPU decodes of the first 2 frames of
+     each stream in worker processes, which must equal the CUDA frames,
+     CWelsDecoder on api_cavlc's stream, and the h264dec console as a
+     subprocess, whose YUV file must equal the decoder's frames.
 It prints a `kernels` JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a GPU, or without the package beside it, it exits non-zero and
@@ -70,6 +83,7 @@ REST_FRAMES = 4        # phase 7 runs: 1 IDR + 3 P
 REST_CROSS = 2         # phase 7 frames encoded on both CUDA and the CPU
 REST_SEED = 2024       # phase 7 content
 GOP_FRAMES = 8         # phase 7 GOP parallelism: 2 closed GOPs of 4
+DEC_CROSS = 2          # phase 8 frames decoded on both CUDA and the CPU
 CPU_THREADS = 2        # torch threads of each CPU cross-check process
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, used for 32-bit integer work
@@ -164,14 +178,16 @@ def deblock_inputs(mbw, mbh, seed, dev, blocky=False):
     return [torch.from_numpy(a).to(dev) for a in arrs]
 
 
-def deblock_bound_ms(mbw, mbh, BSV, BSH):
+def deblock_bound_ms(mbw, mbh, BSV, BSH, n_mb_arrays=2):
     """Least time for one frame's deblock on the card: the larger of the
-    bytes it must move (planes, bS grids and QPs read once, planes
-    written once) over HBM bandwidth, and the integer operations this
-    bS data asks for over the scalar rate: ~60 ops for each luma line
-    and ~25 for each chroma line across an edge with bS > 0."""
+    bytes it must move (planes, bS grids and the per-MB arrays read once
+    -- QP and chroma QP, or with the decoder's inputs QP, Cb and Cr QPs
+    and two offsets -- planes written once) over HBM bandwidth, and the
+    integer operations this bS data asks for over the scalar rate: ~60
+    ops for each luma line and ~25 for each chroma line across an edge
+    with bS > 0."""
     plane = 16 * mbh * 16 * mbw * 3 // 2
-    nbytes = 2 * plane + 2 * BSV.numel() * 4 + 2 * mbw * mbh * 4
+    nbytes = 2 * plane + 2 * BSV.numel() * 4 + n_mb_arrays * mbw * mbh * 4
     bsv, bsh = BSV.clone(), BSH.clone()
     bsv[:, 0] = 0                  # picture-border edges stay unfiltered
     bsh[0, :] = 0
@@ -208,26 +224,44 @@ def idc2_inputs(dev):
     return planes + [BSV, BSH, qp, cqp]
 
 
+def offset_inputs(mbw, mbh, seed, dev):
+    """The decoder's extra deblock inputs: per-MB alpha and beta offsets
+    (-12..12, even, as slice headers send them) and Cb / Cr QPs
+    [2, n_mb] that differ per plane."""
+    import torch
+    rng = np.random.default_rng(seed)
+    n = mbw * mbh
+    return [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-6, 7, n).astype(np.int32) * 2,
+        rng.integers(-6, 7, n).astype(np.int32) * 2,
+        rng.integers(18, 42, (2, n)).astype(np.int32))]
+
+
 def phase_kernels(dev):
     """Kernel vs plain on the card, exact equality: random bS/QP on the
     (6,5), (4,7), (9,3) and 80x45 MB grids (random and blocky planes);
     the schedule's corner grids (1,1), (1,3), (2,300) (more MB rows than
     SMs, so blocks take several rows by ticket) and 1080p's (120,68);
-    one deblock-idc-2 frame (band-top MB rows with zeroed bS); then 50
+    one deblock-idc-2 frame (band-top MB rows with zeroed bS); the
+    decoder's inputs (random non-zero alpha/beta offsets per MB, unequal
+    Cb and Cr QPs) on (6,5) and, in 10 repeats, at 80x45; then 50
     repeats at 80x45, where a fault in the progress counters would show
-    now and then. The kernel filters its planes in place, so it always
-    gets clones."""
+    now and then. The kernel filters its planes in place, so it
+    always gets clones."""
     import torch
     from openh264_tpu_torch.encoder import deblock_cuda, deblock_torch
     mbw, mbh = 80, 45
     results = []
     max_err = 0
 
-    def check(args, mbw, mbh, label):
+    def check(args, mbw, mbh, label, offs=None):
         nonlocal max_err
-        want = deblock_torch.deblock_frame_device(*args, mbw, mbh)
+        extra = () if offs is None else (offs[0], offs[1])
+        if offs is not None:
+            args = args[:6] + [offs[2]]
+        want = deblock_torch.deblock_frame_device(*args, mbw, mbh, *extra)
         got = deblock_cuda.deblock_frame_cuda(
-            *[t.clone() for t in args[:3]], *args[3:], mbw, mbh)
+            *[t.clone() for t in args[:3]], *args[3:], mbw, mbh, *extra)
         torch.cuda.synchronize()
         err = max(int((g.int() - w.int()).abs().max()) for g, w in
                   zip(got, want))
@@ -246,16 +280,23 @@ def phase_kernels(dev):
               f"{w}x{h} MBs{' blocky' if blocky else ''}")
     args = idc2_inputs(dev)
     check(args, mbw, mbh, "80x45 idc2 zero rows")
-    for label, a in (("blocky", deblock_inputs(mbw, mbh, 6, dev, True)),
-                     ("idc2", args)):
-        want = deblock_torch.deblock_frame_device(*a, mbw, mbh)
+    check(deblock_inputs(6, 5, 20, dev, True), 6, 5,
+          "6x5 MBs offsets, Cb/Cr QPs", offset_inputs(6, 5, 20, dev))
+    offs = offset_inputs(mbw, mbh, 21, dev)
+    for label, a, extra, n in (
+            ("blocky", deblock_inputs(mbw, mbh, 6, dev, True), (), 50),
+            ("idc2", args, (), 50),
+            ("idc2 offsets, Cb/Cr QPs", args[:6] + [offs[2]], offs[:2], 10)):
+        want = deblock_torch.deblock_frame_device(*a, mbw, mbh, *extra)
         bad = 0
-        for _ in range(50):
+        for _ in range(n):
             got = deblock_cuda.deblock_frame_cuda(
-                *[t.clone() for t in a[:3]], *a[3:], mbw, mbh)
+                *[t.clone() for t in a[:3]], *a[3:], mbw, mbh, *extra)
             torch.cuda.synchronize()
             bad += not all(torch.equal(g, w) for g, w in zip(got, want))
-        print(f"deblock kernel 50 repeats 80x45 {label}: {bad} differ")
+            max_err = max([max_err] + [int((g.int() - w.int()).abs().max())
+                                       for g, w in zip(got, want)])
+        print(f"deblock kernel {n} repeats 80x45 {label}: {bad} differ")
         results.append(bad == 0)
     if not all(results):
         fail("deblock kernel disagrees with its plain version")
@@ -276,18 +317,55 @@ def phase_kernels(dev):
           f"{p_ms:.4f} ms (10 runs), bound {bound:.6f} ms by {bound_by} "
           f"({nbytes} B, {ops} ops); critical path {steps} MB steps: "
           f"{k_ms / steps * 1e3:.2f} us per step")
+    # the decoder's inputs: per-MB offsets and two chroma QPs, first all
+    # zero and equal (the filtering of the run above, plus the reads of
+    # the three extra arrays), then random (other edges filter)
+    zero = torch.zeros(mbw * mbh, dtype=torch.int32, device=dev)
+    z_ms, z_all = cuda_ms(
+        lambda *a: deblock_cuda.deblock_frame_cuda(*a, mbw, mbh, zero, zero),
+        runs=25, setup=lambda: [p.clone() for p in args[:3]] + args[3:6]
+        + [torch.stack([args[6]] * 2)])
+    o_ms, o_all = cuda_ms(
+        lambda *a: deblock_cuda.deblock_frame_cuda(*a, mbw, mbh, *offs[:2]),
+        runs=25, setup=lambda: [p.clone() for p in args[:3]] + args[3:6]
+        + [offs[2]])
+    o_bound, o_by, o_bytes, _ops = deblock_bound_ms(mbw, mbh, *args[3:5], 5)
+    print(f"deblock 80x45 with zero offsets and two equal chroma QP rows: "
+          f"kernel {z_ms:.4f} ms (min {min(z_all):.4f}, max "
+          f"{max(z_all):.4f}, 25 runs); with random offsets and Cb/Cr QPs: "
+          f"kernel {o_ms:.4f} ms (min {min(o_all):.4f}, max "
+          f"{max(o_all):.4f}, 25 runs), bound {o_bound:.6f} ms by {o_by} "
+          f"({o_bytes} B)")
     return {"name": "deblock_wavefront", "route": "cuda",
             "source": "openh264_tpu_torch/csrc/deblock.cu",
             "wrapper": "openh264_tpu_torch/encoder/deblock_cuda.py",
             "replaces": "openh264_tpu/encoder/deblock_pallas.py:279",
             "match": True, "max_abs_err": max_err,
             "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "ms_zero_offsets": z_ms, "ms_offsets": o_ms,
+            "bound_ms_offsets": o_bound}
+
+
+def capture_recon(enc, recon: list):
+    """Makes the session `enc` keep a device copy of each frame's
+    deblocked reconstruction in `recon` (one clone per plane, queued on
+    the device beside the frame's work)."""
+    launch = enc._launch
+
+    def launch_and_keep(buf):
+        rec = launch(buf)
+        if rec is not None:
+            recon.append([p.clone() for p in enc._pending_ref.planes])
+        return rec
+    enc._launch = launch_and_keep
 
 
 def phase_main_path(dev, card: str):
     """The port's session on 720p frames in two configs; the deblock
-    wrapper's launch count must grow by one per deblocked frame."""
+    wrapper's launch count must grow by one per deblocked frame. Returns
+    the summary, the launches, the first timed run's bytes per frame of
+    each config and constqp's reconstruction per frame (for phase 8)."""
     import torch
     from openh264_tpu_torch.encoder import deblock_cuda
     from openh264_tpu_torch.encoder.config import EncoderConfig
@@ -305,13 +383,15 @@ def phase_main_path(dev, card: str):
     DeviceSessionEncoder(EncoderConfig(width=W720, height=H720, qp=28),
                          device=dev).encode_stream(iter(fr[:3]))
     torch.cuda.synchronize()
-    out = {}
+    out, first_runs, recon = {}, {}, []
     launches = 0
     for name, kw in configs.items():
         runs = []
-        for _ in range(REPEATS):
+        for rep in range(REPEATS):
             cfg = EncoderConfig(width=W720, height=H720, **kw)
             enc = DeviceSessionEncoder(cfg, device=dev)
+            if name == "constqp" and rep == 0:
+                capture_recon(enc, recon)
             deblock_cuda.launches = 0
             t0 = time.perf_counter()
             bs = enc.encode_stream(iter(fr))
@@ -334,11 +414,12 @@ def phase_main_path(dev, card: str):
             runs.append({"fps": len(fr) / dt, "seconds": dt,
                          "coded": coded, "bytes": sum(map(len, bs)),
                          "deblock_launches": n_launch})
+            first_runs.setdefault(name, bs)
         fps = [r["fps"] for r in runs]
         out[name] = {"frames": len(fr), "fps_median": statistics.median(fps),
                      "fps_runs": fps, "runs": runs}
         profile_p_frames(enc, fr, name)
-    return out, launches
+    return out, launches, first_runs, {"constqp": recon}
 
 
 def profile_p_frames(enc, fr, name):
@@ -437,8 +518,10 @@ def host_encoder(kind: str, kw: dict, dev):
     return enc.encode_frame, enc
 
 
-def host_encode(kind, kw, dev, frames, calls):
-    """(Annex-B bytes per frame, host seconds per frame, encode)."""
+def host_encode(kind, kw, dev, frames, calls, recon=None):
+    """(Annex-B bytes per frame, host seconds per frame, encode). With a
+    `recon` list, a device copy of each frame's deblocked reconstruction
+    (the newest DPB entry) is kept there, outside the timed span."""
     encode, enc = host_encoder(kind, kw, dev)
     out, secs = [], []
     for i, f in enumerate(frames):
@@ -447,13 +530,17 @@ def host_encode(kind, kw, dev, frames, calls):
         t0 = time.perf_counter()
         out.append(encode(*f))
         secs.append(time.perf_counter() - t0)
+        if recon is not None:
+            recon.append([p.clone() for p in enc.dpb[-1].planes])
     return out, secs, encode
 
 
 def phase_host_encoder(dev, card: str):
     """The host encoder path on 720p content in each of HOST_CONFIGS:
     timed runs whose deblock launches must equal their deblocked frames,
-    a profile of 2 more P frames, and CUDA against CPU over 3 frames."""
+    a profile of 2 more P frames, and CUDA against CPU over 3 frames.
+    Returns the summary, the launches, the first timed run's bytes per
+    frame of each config and api_cavlc's reconstruction per frame."""
     import torch
     from openh264_tpu_torch.encoder import deblock_cuda
     from openh264_tpu_torch.processing.scroll import detect_scroll
@@ -470,15 +557,16 @@ def phase_host_encoder(dev, card: str):
     host_encode("api", HOST_CONFIGS["api_cavlc"][1], dev,
                 content["camera"][:2], {})
     torch.cuda.synchronize()
-    out, launches = {}, 0
+    out, launches, first_runs, recon = {}, 0, {}, []
     for name, (kind, kw, src, calls) in HOST_CONFIGS.items():
         fr = content[src]
         runs = []
-        for _ in range(HOST_REPEATS):
+        for rep in range(HOST_REPEATS):
             deblock_cuda.launches = 0
             t0 = time.perf_counter()
-            bs, secs, encode = host_encode(kind, kw, dev, fr[:HOST_FRAMES],
-                                           calls)
+            bs, secs, encode = host_encode(
+                kind, kw, dev, fr[:HOST_FRAMES], calls,
+                recon if name == "api_cavlc" and rep == 0 else None)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             n_launch = deblock_cuda.launches
@@ -502,6 +590,7 @@ def phase_host_encoder(dev, card: str):
                          "p_s_median": statistics.median(secs[1:]),
                          "coded": coded, "bytes": sum(map(len, bs)),
                          "deblock_launches": n_launch})
+            first_runs.setdefault(name, bs)
         prof = profile_frames(lambda: [encode(*f) for f in
                                        fr[HOST_FRAMES:HOST_FRAMES + 2]],
                               2, f"host {name}")
@@ -520,7 +609,7 @@ def phase_host_encoder(dev, card: str):
         out[name] = {"frames": HOST_FRAMES,
                      "fps_median": statistics.median(fps), "fps_runs": fps,
                      "runs": runs, "profile_2p": prof}
-    return out, launches
+    return out, launches, first_runs, {"api_cavlc": recon}
 
 
 def _timed_host_run(name, kind, kw, dev, fr, card):
@@ -790,6 +879,153 @@ def phase_rest(dev, card):
     return out, launches
 
 
+def cpu_decode(data: bytes):
+    """In a worker process: the port's CPU decode of `data`, as (y, u, v)
+    numpy planes per frame, and its seconds."""
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+    sys.path.insert(0, str(ROOT))
+    from openh264_tpu_torch.decoder import H264Decoder
+    t0 = time.perf_counter()
+    frames = H264Decoder(device="cpu").decode_annexb(data)
+    return [f.planes() for f in frames], time.perf_counter() - t0
+
+
+def same_frames(got, want) -> bool:
+    """Whether two lists of frames ((y, u, v) numpy planes, or objects
+    with planes()) are equal, plane for plane."""
+    def planes(f):
+        return f.planes() if hasattr(f, "planes") else f
+    return len(got) == len(want) and all(
+        all(np.array_equal(a, b) for a, b in zip(planes(g), planes(w)))
+        for g, w in zip(got, want))
+
+
+def timed_decode(name, data, coded, dev, card):
+    """One timed decode of `data` with seconds per stage; the deblock
+    kernel must launch once per picture, and `coded` frames of 1280x720
+    must come out. Returns the frames and the run's numbers."""
+    import torch
+    from openh264_tpu_torch.decoder import H264Decoder
+    from openh264_tpu_torch.encoder import deblock_cuda
+    dec = H264Decoder(device=dev, stage_times=True)
+    deblock_cuda.launches = 0
+    t0 = time.perf_counter()
+    frames = dec.decode_annexb(data)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_launch = deblock_cuda.launches
+    stages = {k: round(v, 4) for k, v in dec.stage_seconds.items()}
+    print(f"decoder {name}: {len(frames)} frames {W720}x{H720} in {dt:.3f} "
+          f"s = {len(frames) / dt:.3f} frames/s ({len(data)} bytes) on "
+          f"{card}; stage seconds {stages}; deblock kernel launches "
+          f"{n_launch}")
+    if len(frames) != coded:
+        fail(f"decoder {name}: {len(frames)} frames for {coded} coded")
+    if any(f.y.shape != (H720, W720) or f.u.shape != (H720 // 2, W720 // 2)
+           or f.v.shape != f.u.shape for f in frames):
+        fail(f"decoder {name}: cropped frames are not {W720}x{H720}")
+    if n_launch != len(frames):
+        fail(f"decoder {name}: deblock kernel launched {n_launch} times for "
+             f"{len(frames)} decoded pictures")
+    return frames, {"fps": len(frames) / dt, "seconds": dt,
+                    "frames": len(frames), "stage_seconds": stages,
+                    "deblock_launches": n_launch}
+
+
+def phase_decoder(dev, card, streams, recons):
+    """Phase 8: the decoder on the streams phases 4 and 6 wrote (name ->
+    bytes per frame of their first timed run; recons: name -> the
+    encoder's reconstruction per frame, device planes). Returns the
+    summary and the deblock launches of the timed runs."""
+    import torch
+    from openh264_tpu_torch.api import WelsCreateDecoder
+    from openh264_tpu_torch.decoder import H264Decoder
+    from openh264_tpu_torch.decoder.decoder import write_yuv
+    # warm-up: first-use costs (allocator, cached constants) stay out of
+    # the timed runs
+    H264Decoder(device=dev).decode_annexb(b"".join(streams["constqp"][:2]))
+    torch.cuda.synchronize()
+    out, decoded, launches = {}, {}, 0
+    for name, bs in streams.items():
+        runs = []
+        for _ in range(2 if name == "constqp" else 1):
+            frames, run = timed_decode(name, b"".join(bs),
+                                       sum(1 for b in bs if b), dev, card)
+            runs.append(run)
+            launches += run["deblock_launches"]
+            decoded.setdefault(name, frames)
+        out[name] = {"fps_runs": [r["fps"] for r in runs], "runs": runs}
+    # the encoder's own reconstruction: constqp and api_cavlc have
+    # deblock idc 0 and chroma QP offset 0 (no reference fault applies)
+    for name, recon in recons.items():
+        want = [[p.cpu().numpy() for p in r] for r in recon]
+        if not same_frames(decoded[name], want):
+            fail(f"decoder {name}: frames differ from the encoder's "
+                 f"reconstruction")
+        print(f"decoder {name}: all {len(want)} frames equal the encoder's "
+              f"reconstruction")
+    # device busy share over 3 P frames of constqp, after its IDR
+    bs = streams["constqp"]
+    dec = H264Decoder(device=dev)
+    dec.decode_annexb(bs[0])
+    out["profile_3p_constqp"] = profile_frames(
+        lambda: dec.decode_annexb(b"".join(bs[1:4])), 3, "decoder constqp")
+    # then at once, untimed: the CPU decodes, the API, the console
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(streams), mp_context=spawn) as pool:
+        jobs = {name: pool.submit(cpu_decode, b"".join(bs[:DEC_CROSS]))
+                for name, bs in streams.items()}
+        data = b"".join(streams["api_cavlc"])
+        with tempfile.TemporaryDirectory() as tmp:
+            src, yuv, want_yuv = (os.path.join(tmp, n) for n in (
+                "in.264", "out.yuv", "want.yuv"))
+            with open(src, "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "openh264_tpu_torch.cli.h264dec", src,
+                 yuv], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            try:
+                api = WelsCreateDecoder(device=dev)
+                api.Initialize()
+                _state, api_frames = api.DecodeFrameNoDelay(data)
+                api_frames += api.FlushFrame()[1]
+                if not same_frames(api_frames, decoded["api_cavlc"]):
+                    fail("CWelsDecoder's frames differ from H264Decoder's")
+                print(f"decoder api: CWelsDecoder gives H264Decoder's "
+                      f"{len(api_frames)} frames of api_cavlc")
+                stdout, stderr = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            dt = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"h264dec exited {proc.returncode}: {stderr[-2000:]}")
+            write_yuv(decoded["api_cavlc"], want_yuv)
+            with open(yuv, "rb") as a, open(want_yuv, "rb") as b:
+                if a.read() != b.read():
+                    fail("h264dec's YUV file differs from the decoder's "
+                         "frames")
+        fps = [ln.strip() for ln in stdout.splitlines()
+               if ln.startswith("FPS:")] or ["(no FPS line)"]
+        print(f"decoder cli: h264dec wrote the decoder's frames of api_cavlc "
+              f"({dt:.2f} s with start-up, beside the other checks; its "
+              f"{fps[0]})")
+        out["cli"] = {"seconds_with_startup": dt, "fps_line": fps[0]}
+        for name, job in jobs.items():
+            frames, secs = job.result()
+            if not same_frames(decoded[name][:len(frames)], frames) or \
+                    len(frames) < 1:
+                fail(f"decoder {name}: CUDA and CPU frames differ")
+            print(f"decoder cross-check {name}: CPU decode of {len(frames)} "
+                  f"frames ({secs:.2f} s, {CPU_THREADS} torch threads, beside "
+                  f"the other checks) equals the CUDA frames")
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -809,17 +1045,18 @@ def main():
           f"python {sys.version.split()[0]}")
 
     # nvcc and cc at once, one thread each
-    with ThreadPoolExecutor(2) as ex:
-        builds = list(ex.map(_build.build, ("deblock", "host_native")))
+    with ThreadPoolExecutor(3) as ex:
+        builds = list(ex.map(_build.build, ("deblock", "host_native",
+                                            "parse_cavlc")))
     print(f"build deblock: {builds[0][0]:.2f} s\n{builds[0][1].strip()}")
-    print(f"build host_native (host C, cc): {builds[1][0]:.2f} s "
-          f"{builds[1][1].strip()}")
+    for name, (secs, log) in zip(("host_native", "parse_cavlc"), builds[1:]):
+        print(f"build {name} (host C, cc): {secs:.2f} s {log.strip()}")
 
     t0 = time.perf_counter()
     kern = phase_kernels(dev)
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    main_path, launches = phase_main_path(dev, card)
+    main_path, launches, streams, recons = phase_main_path(dev, card)
     print(f"phase main path: {time.perf_counter() - t0:.1f} s")
     if launches == 0:
         fail("the main path never launched the deblock kernel")
@@ -827,7 +1064,10 @@ def main():
     phase_cross_check(dev)
     print(f"phase cross-check: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    host_path, host_launches = phase_host_encoder(dev, card)
+    host_path, host_launches, host_streams, host_recons = \
+        phase_host_encoder(dev, card)
+    streams.update(host_streams)
+    recons.update(host_recons)
     print(f"phase host encoder: {time.perf_counter() - t0:.1f} s")
     if host_launches == 0:
         fail("the host encoder path never launched the deblock kernel")
@@ -836,15 +1076,24 @@ def main():
     print(f"phase rest: {time.perf_counter() - t0:.1f} s")
     if rest_launches == 0:
         fail("the phase 7 paths never launched the deblock kernel")
-    kern["launches"] = launches + host_launches + rest_launches
+    t0 = time.perf_counter()
+    decoder, dec_launches = phase_decoder(dev, card, streams, recons)
+    print(f"phase decoder: {time.perf_counter() - t0:.1f} s")
+    if dec_launches == 0:
+        fail("the decoder never launched the deblock kernel")
+    kern["launches"] = launches + host_launches + rest_launches + \
+        dec_launches
     kern["launches_by_phase"] = {"main path": launches,
                                  "host encoder": host_launches,
-                                 "rest": rest_launches}
+                                 "rest": rest_launches,
+                                 "decoder": dec_launches}
     print(f"main path summary: "
           f"{json.dumps({'card': card, 'configs': main_path})}")
     print(f"host encoder summary: "
           f"{json.dumps({'card': card, 'configs': host_path})}")
     print(f"rest summary: {json.dumps({'card': card, 'configs': rest})}")
+    print(f"decoder summary: "
+          f"{json.dumps({'card': card, 'streams': decoder})}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kern]}))
     print(json.dumps({"ok": True, "device": {

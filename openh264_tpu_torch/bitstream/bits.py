@@ -1,12 +1,122 @@
-"""MSB-first bit writer with exp-Golomb codes (H.264 §9.1).
+"""Bit-level I/O: MSB-first bit reader and writer with exp-Golomb
+codes (H.264 §9.1).
 
-Copied from openh264_tpu/bitstream/bits.py, writer side only: the port
-writes parameter sets and slice headers on the host and parses nothing.
+Copied from openh264_tpu/bitstream/bits.py. The writer serves the
+encoders' parameter sets and slice headers; the reader serves the
+decoder's parameter sets and slice headers on the host (slice data is
+parsed by the host C in csrc/parse_cavlc.c).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+class BitReader:
+    """MSB-first bit reader over a bytes-like RBSP buffer.
+
+    The buffer must already have emulation-prevention bytes removed
+    (see nal.unescape_rbsp).
+    """
+
+    __slots__ = ("data", "nbits", "pos", "_val")
+
+    def __init__(self, data) -> None:
+        if isinstance(data, np.ndarray):
+            data = data.tobytes()
+        self.data = data
+        self.nbits = 8 * len(data)
+        self.pos = 0  # bit position
+        # One big int holding the whole buffer; Python big-int shifts are
+        # fast (C loops) and make reads branch-free.
+        self._val = int.from_bytes(data, "big") if data else 0
+
+    # -- raw bits -------------------------------------------------------
+    def u(self, n: int) -> int:
+        """Read n bits as an unsigned integer (u(n))."""
+        if n == 0:
+            return 0
+        end = self.pos + n
+        if end > self.nbits:
+            raise EOFError(f"bitstream overrun: need {n} bits at {self.pos}/{self.nbits}")
+        v = (self._val >> (self.nbits - end)) & ((1 << n) - 1)
+        self.pos = end
+        return v
+
+    def peek(self, n: int) -> int:
+        """Peek n bits without consuming; short reads are zero-padded."""
+        end = self.pos + n
+        if end <= self.nbits:
+            return (self._val >> (self.nbits - end)) & ((1 << n) - 1)
+        avail = self.nbits - self.pos
+        if avail <= 0:
+            return 0
+        v = self._val & ((1 << avail) - 1)
+        return v << (n - avail)
+
+    def skip(self, n: int) -> None:
+        self.pos += n
+        if self.pos > self.nbits:
+            raise EOFError("bitstream overrun in skip")
+
+    def flag(self) -> bool:
+        return bool(self.u(1))
+
+    # -- exp-Golomb -----------------------------------------------------
+    def ue(self) -> int:
+        """ue(v): unsigned exp-Golomb (H.264 §9.1)."""
+        # Count leading zeros.
+        lz = 0
+        while True:
+            chunk = self.peek(32)
+            if chunk == 0:
+                if self.pos + lz + 32 >= self.nbits + 64:
+                    raise EOFError("ue(v) ran off end of bitstream")
+                self.skip(32)
+                lz += 32
+                continue
+            z = 32 - chunk.bit_length()
+            lz += z
+            self.skip(z)
+            break
+        self.skip(1)  # the terminating 1 bit
+        if lz == 0:
+            return 0
+        return (1 << lz) - 1 + self.u(lz)
+
+    def se(self) -> int:
+        """se(v): signed exp-Golomb (H.264 §9.1.1)."""
+        k = self.ue()
+        return (k + 1) >> 1 if (k & 1) else -(k >> 1)
+
+    def te(self, x: int) -> int:
+        """te(v): truncated exp-Golomb with range [0, x]."""
+        if x == 1:
+            return 1 - self.u(1)
+        return self.ue()
+
+    # -- trailing bits --------------------------------------------------
+    def byte_aligned(self) -> bool:
+        return (self.pos & 7) == 0
+
+    def bits_left(self) -> int:
+        return self.nbits - self.pos
+
+    def more_rbsp_data(self) -> bool:
+        """H.264 §7.2: true if there is data before rbsp_stop_one_bit."""
+        if self.pos >= self.nbits:
+            return False
+        # Find last 1 bit in the stream (the rbsp_stop_one_bit).
+        rem = self._val & ((1 << (self.nbits - self.pos)) - 1)
+        if rem == 0:
+            return False  # degenerate stream
+        stop_pos = self.nbits - ((rem & -rem).bit_length() - 1) - 1
+        return self.pos < stop_pos
+
+    def rbsp_trailing_bits(self) -> None:
+        assert self.u(1) == 1, "rbsp_stop_one_bit must be 1"
+        while not self.byte_aligned():
+            self.u(1)
 
 
 class BitWriter:

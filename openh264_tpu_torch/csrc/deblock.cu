@@ -1,5 +1,6 @@
-// H.264 in-loop deblocking of one encoder frame (spec 8.7) as one
-// persistent, row-pipelined launch, hand-written for Hopper (sm_90a).
+// H.264 in-loop deblocking of one frame (spec 8.7) as one persistent,
+// row-pipelined launch, hand-written for Hopper (sm_90a). The encoders
+// and the decoder send their frames here.
 //
 // Replaces the TPU kernel openh264_tpu/encoder/deblock_pallas.py
 // (deblock_frame_pallas -> _kernel). It computes exactly what
@@ -80,6 +81,15 @@
 // horizontal e = 0..3, chroma at e in {0, 2}, picture-border bS forced
 // to 0. The TPU kernel's plane shear (a lane-alignment workaround) is
 // gone: blocks address the plain planes.
+//
+// Beyond the TPU kernel, which served the encoder's frames only, two
+// inputs serve the decoder's (openh264_tpu/oracle/deblock.py:235-263):
+// per-MB alpha and beta offsets (the slice's FilterOffsetA/B), added to
+// the QP average of an edge of MB q with q's own offsets, and a chroma
+// QP per plane (the PPS's two chroma QP offsets). Both are optional: a
+// null offset pointer reads as 0, a null Cr QP pointer as the Cb one,
+// and the encoders pass nulls, so their frames move the bytes they
+// moved before.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -115,17 +125,20 @@ __device__ __forceinline__ int clip3(int x, int lo, int hi) {
 __device__ __forceinline__ int iabs(int x) { return x < 0 ? -x : x; }
 
 // Filter parameters of one edge line: the QP average of the two MBs
-// (qa, qb) indexes the tables; bS <= 0 turns the line off.
+// (qa, qb) plus the current MB's alpha (ao) or beta (bo) offset indexes
+// the tables; bS <= 0 turns the line off.
 struct EdgeParams {
   int bs, alpha, beta, tc0;
 };
 
-__device__ __forceinline__ EdgeParams edge_params(int bs, int qa, int qb) {
-  const int ia = clip3((qa + qb + 1) >> 1, 0, 51);
+__device__ __forceinline__ EdgeParams edge_params(int bs, int qa, int qb,
+                                                  int ao, int bo) {
+  const int qav = (qa + qb + 1) >> 1;
+  const int ia = clip3(qav + ao, 0, 51), ib = clip3(qav + bo, 0, 51);
   EdgeParams p;
   p.bs = bs;
   p.alpha = kAlpha[ia];
-  p.beta = kBeta[ia];
+  p.beta = kBeta[ib];
   p.tc0 = kTc0[ia][clip3(bs - 1, 0, 2)];
   return p;
 }
@@ -207,8 +220,9 @@ __device__ __forceinline__ int byte_of(uint4 l, int k) {
 
 // Persistent row-pipelined deblock of one frame; see the note above.
 // scratch: mb_h progress counters (MBs finished per row), then the row
-// ticket, all zero at launch. Dynamic shared memory: the row's bS and
-// QPs, (8 * W4 + 4 * mb_w) ints.
+// ticket, all zero at launch. Dynamic shared memory: the row's bS, its
+// QPs and offsets, (8 * W4 + 8 * mb_w) ints. cqpv, aoff, boff may be
+// null (see the note above).
 //
 // Roles. Lane l < 16 of the luma warp owns luma line l of the MB: row l
 // in the vertical pass, column l in the horizontal one. Lane l < 16 of
@@ -224,7 +238,11 @@ __device__ __forceinline__ int byte_of(uint4 l, int k) {
 __global__ void __launch_bounds__(kThreads)
 deblock_rows(uint8_t* y, uint8_t* u, uint8_t* v,
              const int32_t* __restrict__ bsv, const int32_t* __restrict__ bsh,
-             const int32_t* __restrict__ qp, const int32_t* __restrict__ cqp,
+             const int32_t* __restrict__ qp,
+             const int32_t* __restrict__ cqpu,
+             const int32_t* __restrict__ cqpv,
+             const int32_t* __restrict__ aoff,
+             const int32_t* __restrict__ boff,
              int* scratch, int mb_w, int mb_h) {
   __shared__ int R[16][17];
   __shared__ int C[2][8][9];
@@ -235,16 +253,23 @@ deblock_rows(uint8_t* y, uint8_t* u, uint8_t* v,
   const int W4 = 4 * mb_w;
   int* bsv_s = dyn;                 // [4][W4]: BSV rows 4y..4y+3
   int* bsh_s = bsv_s + 4 * W4;      // [4][W4]: BSH rows 4y..4y+3
-  int* qp_s = bsh_s + 4 * W4;       // [mb_w] each: QP and chroma QP of
-  int* cqp_s = qp_s + mb_w;         // row y, then of row y-1
-  int* qpt_s = cqp_s + mb_w;
-  int* cqpt_s = qpt_s + mb_w;
+  // [mb_w] each: of row y the QP, the Cb and Cr QPs, the alpha and
+  // beta offsets; of row y-1 the QP and the Cb and Cr QPs
+  int* qp_s = bsh_s + 4 * W4;
+  int* cqs = qp_s + mb_w;           // [2][mb_w]: Cb, Cr
+  int* ao_s = cqs + 2 * mb_w;
+  int* bo_s = ao_s + mb_w;
+  int* qpt_s = bo_s + mb_w;
+  int* cqts = qpt_s + mb_w;         // [2][mb_w]
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int W = 16 * mb_w, Wc = 8 * mb_w;
   // chroma lanes: plane cp, line cl
   const int cp = (lane >> 3) & 1, cl = lane & 7;
   uint8_t* const cplane = cp ? v : u;
+  const int* const cqp_s = cqs + cp * mb_w;
+  const int* const cqpt_s = cqts + cp * mb_w;
+  const int32_t* const cqpv_in = cqpv ? cqpv : cqpu;
   const bool active = lane < 16;
 
   for (;;) {
@@ -260,10 +285,15 @@ deblock_rows(uint8_t* y, uint8_t* u, uint8_t* v,
       bsh_s[i] = bsh[4 * my * W4 + i];
     }
     for (int i = t; i < mb_w; i += kThreads) {
-      qp_s[i] = qp[my * mb_w + i];
-      cqp_s[i] = cqp[my * mb_w + i];
-      qpt_s[i] = my > 0 ? qp[(my - 1) * mb_w + i] : 0;
-      cqpt_s[i] = my > 0 ? cqp[(my - 1) * mb_w + i] : 0;
+      const int k = my * mb_w + i, kt = k - mb_w;
+      qp_s[i] = qp[k];
+      cqs[i] = cqpu[k];
+      cqs[mb_w + i] = cqpv_in[k];
+      ao_s[i] = aoff ? aoff[k] : 0;
+      bo_s[i] = boff ? boff[k] : 0;
+      qpt_s[i] = my > 0 ? qp[kt] : 0;
+      cqts[i] = my > 0 ? cqpu[kt] : 0;
+      cqts[mb_w + i] = my > 0 ? cqpv_in[kt] : 0;
     }
     // left of the picture and above it pixels read as 0 (they only feed
     // edges whose bS is forced to 0)
@@ -283,6 +313,7 @@ deblock_rows(uint8_t* y, uint8_t* u, uint8_t* v,
       for (int mx = 0; mx < mb_w; ++mx) {
         const int qc = qp_s[mx], ql = mx > 0 ? qp_s[mx - 1] : qc;
         const int qt = my > 0 ? qpt_s[mx] : qc;
+        const int ao = ao_s[mx], bo = bo_s[mx];
         int L[20];
         if (active) {         // vertical edges on row `lane`
 #pragma unroll
@@ -293,7 +324,8 @@ deblock_rows(uint8_t* y, uint8_t* u, uint8_t* v,
           for (int e = 0; e < 4; ++e) {
             int bs = bsv_s[(lane >> 2) * W4 + 4 * mx + e];
             if (e == 0 && mx == 0) bs = 0;
-            luma_line(&L[4 * e], 1, edge_params(bs, qc, e == 0 ? ql : qc));
+            luma_line(&L[4 * e], 1,
+                      edge_params(bs, qc, e == 0 ? ql : qc, ao, bo));
           }
 #pragma unroll
           for (int c = 0; c < 16; ++c) R[lane][c] = L[4 + c];
@@ -314,7 +346,8 @@ deblock_rows(uint8_t* y, uint8_t* u, uint8_t* v,
           for (int e = 0; e < 4; ++e) {
             int bs = bsh_s[e * W4 + 4 * mx + (lane >> 2)];
             if (e == 0 && my == 0) bs = 0;
-            luma_line(&L[4 * e], 1, edge_params(bs, qc, e == 0 ? qt : qc));
+            luma_line(&L[4 * e], 1,
+                      edge_params(bs, qc, e == 0 ? qt : qc, ao, bo));
           }
           uint8_t* col = y + (16 * my - 4) * W + 16 * mx + lane;
 #pragma unroll
@@ -337,6 +370,7 @@ deblock_rows(uint8_t* y, uint8_t* u, uint8_t* v,
       for (int mx = 0; mx < mb_w; ++mx) {
         const int qc = cqp_s[mx], ql = mx > 0 ? cqp_s[mx - 1] : qc;
         const int qt = my > 0 ? cqpt_s[mx] : qc;
+        const int ao = ao_s[mx], bo = bo_s[mx];
         int L[10];
         if (active) {         // vertical edges e = 0, 2 on row cl
 #pragma unroll
@@ -347,7 +381,8 @@ deblock_rows(uint8_t* y, uint8_t* u, uint8_t* v,
           for (int e = 0; e < 4; e += 2) {
             int bs = bsv_s[(cl >> 1) * W4 + 4 * mx + e];
             if (e == 0 && mx == 0) bs = 0;
-            chroma_line(&L[2 * e], 1, edge_params(bs, qc, e == 0 ? ql : qc));
+            chroma_line(&L[2 * e], 1,
+                        edge_params(bs, qc, e == 0 ? ql : qc, ao, bo));
           }
 #pragma unroll
           for (int c = 0; c < 8; ++c) C[cp][cl][c] = L[2 + c];
@@ -368,7 +403,8 @@ deblock_rows(uint8_t* y, uint8_t* u, uint8_t* v,
           for (int e = 0; e < 4; e += 2) {
             int bs = bsh_s[e * W4 + 4 * mx + (cl >> 1)];
             if (e == 0 && my == 0) bs = 0;
-            chroma_line(&L[2 * e], 1, edge_params(bs, qc, e == 0 ? qt : qc));
+            chroma_line(&L[2 * e], 1,
+                        edge_params(bs, qc, e == 0 ? qt : qc, ao, bo));
           }
           uint8_t* col = cplane + (8 * my - 2) * Wc + 8 * mx + cl;
 #pragma unroll
@@ -426,21 +462,24 @@ deblock_rows(uint8_t* y, uint8_t* u, uint8_t* v,
 
 // Filters one frame in place on `stream` with one launch: y [16*mb_h,
 // 16*mb_w], u and v [8*mb_h, 8*mb_w] uint8 (y 16-byte, u and v 8-byte
-// aligned); bsv, bsh [4*mb_h, 4*mb_w] int32 (bS 0..4); qp, cqp
-// [mb_h*mb_w] int32; scratch [mb_h + 1] int32, zero. All row-major and
-// contiguous. Returns the launch's error (cudaSuccess = 0).
+// aligned); bsv, bsh [4*mb_h, 4*mb_w] int32 (bS 0..4); qp, cqpu (Cb),
+// cqpv (Cr, or null for the Cb QPs), aoff, boff (alpha / beta offsets,
+// or null for 0) [mb_h*mb_w] int32; scratch [mb_h + 1] int32, zero. All
+// row-major and contiguous. Returns the launch's error (cudaSuccess = 0).
 extern "C" int deblock_frame(void* y, void* u, void* v, const void* bsv,
                              const void* bsh, const void* qp,
-                             const void* cqp, void* scratch, int mb_w,
-                             int mb_h, void* stream) {
+                             const void* cqpu, const void* cqpv,
+                             const void* aoff, const void* boff,
+                             void* scratch, int mb_w, int mb_h,
+                             void* stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = (8 * 4 * mb_w + 4 * mb_w) * sizeof(int);
+  const size_t smem = (8 * 4 * mb_w + 8 * mb_w) * sizeof(int);
   // past 48 KB of shared memory in all (the static part is ~2.4 KB, so
-  // frames wider than ~4,500 pixels) a block needs this opt-in; every
+  // frames wider than ~4,600 pixels) a block needs this opt-in; every
   // launch sets it, so that all widths take the same path
   err = cudaFuncSetAttribute(deblock_rows,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -451,7 +490,8 @@ extern "C" int deblock_frame(void* y, void* u, void* v, const void* bsv,
       static_cast<uint8_t*>(y), static_cast<uint8_t*>(u),
       static_cast<uint8_t*>(v), static_cast<const int32_t*>(bsv),
       static_cast<const int32_t*>(bsh), static_cast<const int32_t*>(qp),
-      static_cast<const int32_t*>(cqp), static_cast<int*>(scratch), mb_w,
-      mb_h);
+      static_cast<const int32_t*>(cqpu), static_cast<const int32_t*>(cqpv),
+      static_cast<const int32_t*>(aoff), static_cast<const int32_t*>(boff),
+      static_cast<int*>(scratch), mb_w, mb_h);
   return static_cast<int>(cudaGetLastError());
 }

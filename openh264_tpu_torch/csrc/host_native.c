@@ -1,11 +1,15 @@
-/* Host C of the port's host encoder: the I-frame intra mode decision and
- * encode (I16x16 vs I4x4 per MB) and the MSB-first token bit packer.
+/* Host C of the port's host encoder and decoder: the I-frame intra mode
+ * decision and encode (I16x16 vs I4x4 per MB), the MSB-first token bit
+ * packer, and the decoder's intra reconstruction.
  *
  * Copied from the JAX package's host C, which is host code there too:
  *  - bitpack: openh264_tpu/native/codec_native.c;
  *  - pred4 (4x4 luma intra predictors) and clip255:
- *    openh264_tpu/native/recon_intra.c, made static here;
- *  - enc_intra_frame and its helpers: openh264_tpu/native/enc_intra.c.
+ *    openh264_tpu/native/recon_intra.c, made static here and shared by
+ *    the encoder's I4x4 and the decoder's intra recon;
+ *  - enc_intra_frame and its helpers: openh264_tpu/native/enc_intra.c;
+ *  - recon_intra_mbs and idct4_add: openh264_tpu/native/recon_intra.c
+ *    (its note is at recon_intra_mbs below).
  * Built with the host compiler by openh264_tpu_torch/_build.py and bound
  * with ctypes by openh264_tpu_torch/native.py. Nothing here runs on the
  * card.
@@ -735,4 +739,280 @@ void enc_intra_frame(const void **ptrs, const int32_t *params) {
         }
     }
     free(mg);
+}
+
+
+/* ---------------- decoder intra reconstruction ----------------
+ *
+ * Native intra reconstruction: predict + IDCT-add for I4x4 / I16x16 /
+ * IPCM macroblocks, walking the frame's intra MBs in raster order
+ * (inter MBs are reconstructed batched on the device first; intra MBs
+ * only ever read raster-earlier neighbors, so this split is exact).
+ * Mirrors openh264_tpu/decoder/recon_oracle.py recon_intra_mb and
+ * oracle/intra.py (the parity of rec_mb.cpp RecI16x16Mb / RecI4x4Mb /
+ * RecChroma and get_intra_predictor.cpp). I8x8 is not handled here.
+ */
+
+/* idct4x4_add parity with oracle/transform.py: horizontal pass stored
+ * int16 (wraps), vertical accumulates int32, (x+32)>>6, add, clip. */
+static void idct4_add(const int32_t *coef, const uint8_t *pred, int pstride,
+                      uint8_t *dst, int dstride) {
+    int32_t h[16];
+    for (int r = 0; r < 4; r++) {
+        int32_t c0 = coef[r * 4], c1 = coef[r * 4 + 1],
+                c2 = coef[r * 4 + 2], c3 = coef[r * 4 + 3];
+        int32_t t0 = c0 + c2, t1 = c0 - c2;
+        int32_t t2 = (c1 >> 1) - c3, t3 = c1 + (c3 >> 1);
+        h[r * 4 + 0] = (int16_t)(t0 + t3);
+        h[r * 4 + 1] = (int16_t)(t1 + t2);
+        h[r * 4 + 2] = (int16_t)(t1 - t2);
+        h[r * 4 + 3] = (int16_t)(t0 - t3);
+    }
+    for (int col = 0; col < 4; col++) {
+        int32_t h0 = h[col], h1 = h[4 + col], h2 = h[8 + col],
+                h3 = h[12 + col];
+        int32_t t0 = h0 + h2, t1 = h0 - h2;
+        int32_t t2 = (h1 >> 1) - h3, t3 = h1 + (h3 >> 1);
+        int32_t r0 = t0 + t3, r1 = t1 + t2, r2 = t1 - t2, r3 = t0 - t3;
+        dst[0 * dstride + col] = (uint8_t)clip255(
+            pred[0 * pstride + col] + ((r0 + 32) >> 6));
+        dst[1 * dstride + col] = (uint8_t)clip255(
+            pred[1 * pstride + col] + ((r1 + 32) >> 6));
+        dst[2 * dstride + col] = (uint8_t)clip255(
+            pred[2 * pstride + col] + ((r2 + 32) >> 6));
+        dst[3 * dstride + col] = (uint8_t)clip255(
+            pred[3 * pstride + col] + ((r3 + 32) >> 6));
+    }
+}
+
+static const int ZS2R[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13,
+                             10, 11, 14, 15};
+static int R2Z[16];
+
+static inline int intra_avail(const int32_t *mb_type,
+                              const int32_t *slice_id, int mb_w, int mb_h,
+                              int cur, int mbx, int mby, int constrained) {
+    if (mbx < 0 || mby < 0 || mbx >= mb_w || mby >= mb_h) return 0;
+    int idx = mby * mb_w + mbx;
+    if (slice_id[idx] != slice_id[cur]) return 0;
+    if (constrained) {
+        int t = mb_type[idx];
+        if (!(t >= 0 && t <= 3)) return 0;
+    }
+    return 1;
+}
+
+/* ptrs: y,u,v, mb_type, slice_id, i16_mode, i4_modes, chroma_mode,
+ *       coeffs_l, coeffs_c, ipcm_buf, ipcm_flag, mb_list
+ * params: mb_w, mb_h, n_list, constrained */
+void recon_intra_mbs(const void **ptrs, const int32_t *params) {
+    int i = 0;
+    uint8_t *Y = (uint8_t *)ptrs[i++];
+    uint8_t *U = (uint8_t *)ptrs[i++];
+    uint8_t *V = (uint8_t *)ptrs[i++];
+    const int32_t *mb_type = (const int32_t *)ptrs[i++];
+    const int32_t *slice_id = (const int32_t *)ptrs[i++];
+    const int32_t *i16_mode = (const int32_t *)ptrs[i++];
+    const int32_t *i4_modes = (const int32_t *)ptrs[i++];
+    const int32_t *chroma_mode = (const int32_t *)ptrs[i++];
+    const int32_t *coeffs_l = (const int32_t *)ptrs[i++];
+    const int32_t *coeffs_c = (const int32_t *)ptrs[i++];
+    const uint8_t *ipcm_buf = (const uint8_t *)ptrs[i++];
+    const uint8_t *ipcm_flag = (const uint8_t *)ptrs[i++];
+    const int32_t *mb_list = (const int32_t *)ptrs[i++];
+    int mb_w = params[0], mb_h = params[1], n_list = params[2],
+        constrained = params[3];
+    int W = mb_w * 16, CW = mb_w * 8;
+
+    for (int k = 0; k < 16; k++) R2Z[ZS2R[k]] = k;
+
+    for (int li = 0; li < n_list; li++) {
+        int idx = mb_list[li];
+        int mbx = idx % mb_w, mby = idx / mb_w;
+        int x0 = mbx * 16, y0 = mby * 16;
+        int cx0 = mbx * 8, cy0 = mby * 8;
+        int t = mb_type[idx];
+
+        if (t == 2) {   /* IPCM */
+            if (!ipcm_flag[idx]) continue;
+            const uint8_t *src = ipcm_buf + (size_t)idx * 384;
+            for (int r = 0; r < 16; r++)
+                memcpy(Y + (y0 + r) * W + x0, src + r * 16, 16);
+            for (int r = 0; r < 8; r++)
+                memcpy(U + (cy0 + r) * CW + cx0, src + 256 + r * 8, 8);
+            for (int r = 0; r < 8; r++)
+                memcpy(V + (cy0 + r) * CW + cx0, src + 320 + r * 8, 8);
+            continue;
+        }
+
+        int al = intra_avail(mb_type, slice_id, mb_w, mb_h, idx,
+                             mbx - 1, mby, constrained);
+        int at = intra_avail(mb_type, slice_id, mb_w, mb_h, idx,
+                             mbx, mby - 1, constrained);
+        int atl = intra_avail(mb_type, slice_id, mb_w, mb_h, idx,
+                              mbx - 1, mby - 1, constrained);
+        int atr = intra_avail(mb_type, slice_id, mb_w, mb_h, idx,
+                              mbx + 1, mby - 1, constrained);
+
+        if (t == 1) {   /* I16x16 */
+            int32_t top[16], left[16];
+            int tl = atl ? Y[(y0 - 1) * W + x0 - 1] : 0;
+            for (int x = 0; x < 16; x++)
+                top[x] = at ? Y[(y0 - 1) * W + x0 + x] : 0;
+            for (int y = 0; y < 16; y++)
+                left[y] = al ? Y[(y0 + y) * W + x0 - 1] : 0;
+            uint8_t pred[256];
+            int mode = i16_mode[idx];
+            if (mode == 2) {
+                int dc;
+                long ts = 0, ls = 0;
+                for (int x = 0; x < 16; x++) { ts += top[x]; ls += left[x]; }
+                if (at && al) dc = (int)((ts + ls + 16) >> 5);
+                else if (al) dc = (int)((ls + 8) >> 4);
+                else if (at) dc = (int)((ts + 8) >> 4);
+                else dc = 128;
+                memset(pred, dc, 256);
+            } else if (mode == 0) {
+                for (int y = 0; y < 16; y++)
+                    for (int x = 0; x < 16; x++)
+                        pred[y * 16 + x] = (uint8_t)clip255(top[x]);
+            } else if (mode == 1) {
+                for (int y = 0; y < 16; y++)
+                    for (int x = 0; x < 16; x++)
+                        pred[y * 16 + x] = (uint8_t)clip255(left[y]);
+            } else {    /* plane */
+                long h = 0, v = 0;
+                for (int x = 0; x < 8; x++)
+                    h += (x + 1) * (top[8 + x]
+                                    - (6 - x >= 0 ? top[6 - x] : tl));
+                for (int y = 0; y < 8; y++)
+                    v += (y + 1) * (left[8 + y]
+                                    - (6 - y >= 0 ? left[6 - y] : tl));
+                long a = 16 * (left[15] + top[15]);
+                long b = (5 * h + 32) >> 6;
+                long cc = (5 * v + 32) >> 6;
+                for (int y = 0; y < 16; y++)
+                    for (int x = 0; x < 16; x++)
+                        pred[y * 16 + x] = (uint8_t)clip255(
+                            (int)((a + b * (x - 7) + cc * (y - 7) + 16)
+                                  >> 5));
+            }
+            for (int blk = 0; blk < 16; blk++) {
+                int bx = blk % 4, by = blk / 4;
+                idct4_add(coeffs_l + ((size_t)idx * 16 + blk) * 16,
+                          pred + (by * 4) * 16 + bx * 4, 16,
+                          Y + (y0 + by * 4) * W + x0 + bx * 4, W);
+            }
+        } else if (t == 0) {   /* I4x4 */
+            for (int kz = 0; kz < 16; kz++) {
+                int raster = ZS2R[kz];
+                int bx = raster % 4, by = raster / 4;
+                int gx = x0 + bx * 4, gy = y0 + by * 4;
+                int b_al = (bx > 0) || al;
+                int b_at = (by > 0) || at;
+                int b_atl = (bx > 0 && by > 0) || (bx > 0 && at)
+                            || (by > 0 && al) || atl;
+                int b_atr;
+                if (by == 0) b_atr = (bx < 3) ? at : atr;
+                else if (bx == 3) b_atr = 0;
+                else b_atr = R2Z[(by - 1) * 4 + (bx + 1)] < kz;
+                int32_t tb[8], lb[4];
+                int tl = b_atl ? Y[(gy - 1) * W + gx - 1] : 0;
+                if (b_at) {
+                    for (int x = 0; x < 8; x++) {
+                        int px = gx + x;
+                        tb[x] = Y[(gy - 1) * W + (px < W ? px : W - 1)];
+                    }
+                    if (!b_atr)
+                        for (int x = 4; x < 8; x++) tb[x] = tb[3];
+                } else {
+                    memset(tb, 0, sizeof(tb));
+                }
+                if (b_al)
+                    for (int y = 0; y < 4; y++) lb[y] = Y[(gy + y) * W + gx - 1];
+                else
+                    memset(lb, 0, sizeof(lb));
+                uint8_t pred[16];
+                pred4(i4_modes[idx * 16 + raster], tb, lb, tl, b_at, b_al,
+                      pred);
+                idct4_add(coeffs_l + ((size_t)idx * 16 + raster) * 16,
+                          pred, 4, Y + gy * W + gx, W);
+            }
+        }
+
+        /* ---- chroma (I4x4 + I16x16) ---- */
+        if (t == 0 || t == 1) {
+            int cmode = chroma_mode[idx];
+            for (int comp = 0; comp < 2; comp++) {
+                uint8_t *P = comp ? V : U;
+                int32_t top[8], left[8];
+                int tl = atl ? P[(cy0 - 1) * CW + cx0 - 1] : 0;
+                for (int x = 0; x < 8; x++)
+                    top[x] = at ? P[(cy0 - 1) * CW + cx0 + x] : 0;
+                for (int y = 0; y < 8; y++)
+                    left[y] = al ? P[(cy0 + y) * CW + cx0 - 1] : 0;
+                uint8_t pred[64];
+                if (cmode == 0) {       /* DC per quadrant */
+                    for (int qy = 0; qy < 2; qy++)
+                        for (int qx = 0; qx < 2; qx++) {
+                            int ts = top[qx * 4] + top[qx * 4 + 1]
+                                     + top[qx * 4 + 2] + top[qx * 4 + 3];
+                            int ls = left[qy * 4] + left[qy * 4 + 1]
+                                     + left[qy * 4 + 2] + left[qy * 4 + 3];
+                            int dc;
+                            if (qx == qy) {
+                                if (at && al) dc = (ts + ls + 4) >> 3;
+                                else if (at) dc = (ts + 2) >> 2;
+                                else if (al) dc = (ls + 2) >> 2;
+                                else dc = 128;
+                            } else if (qx == 1) {
+                                if (at) dc = (ts + 2) >> 2;
+                                else if (al) dc = (ls + 2) >> 2;
+                                else dc = 128;
+                            } else {
+                                if (al) dc = (ls + 2) >> 2;
+                                else if (at) dc = (ts + 2) >> 2;
+                                else dc = 128;
+                            }
+                            for (int y = 0; y < 4; y++)
+                                for (int x = 0; x < 4; x++)
+                                    pred[(qy * 4 + y) * 8 + qx * 4 + x] =
+                                        (uint8_t)dc;
+                        }
+                } else if (cmode == 1) {
+                    for (int y = 0; y < 8; y++)
+                        for (int x = 0; x < 8; x++)
+                            pred[y * 8 + x] = (uint8_t)clip255(left[y]);
+                } else if (cmode == 2) {
+                    for (int y = 0; y < 8; y++)
+                        for (int x = 0; x < 8; x++)
+                            pred[y * 8 + x] = (uint8_t)clip255(top[x]);
+                } else {
+                    long h = 0, v = 0;
+                    for (int x = 0; x < 4; x++)
+                        h += (x + 1) * (2 - x >= 0
+                                        ? top[4 + x] - top[2 - x]
+                                        : top[4 + x] - tl);
+                    for (int y = 0; y < 4; y++)
+                        v += (y + 1) * (left[4 + y]
+                                        - (2 - y >= 0 ? left[2 - y] : tl));
+                    long a = 16 * (left[7] + top[7]);
+                    long b = (17 * h + 16) >> 5;
+                    long cc = (17 * v + 16) >> 5;
+                    for (int y = 0; y < 8; y++)
+                        for (int x = 0; x < 8; x++)
+                            pred[y * 8 + x] = (uint8_t)clip255(
+                                (int)((a + b * (x - 3) + cc * (y - 3) + 16)
+                                      >> 5));
+                }
+                for (int blk = 0; blk < 4; blk++) {
+                    int bx = blk % 2, by = blk / 2;
+                    idct4_add(coeffs_c + (((size_t)idx * 2 + comp) * 4
+                                          + blk) * 16,
+                              pred + (by * 4) * 8 + bx * 4, 8,
+                              P + (cy0 + by * 4) * CW + cx0 + bx * 4, CW);
+                }
+            }
+        }
+    }
 }

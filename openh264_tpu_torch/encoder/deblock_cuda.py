@@ -36,7 +36,7 @@ def _kernel():
     """The C entry point, with its argument types declared: pointers and
     the stream as void*, so that ctypes does not cut them to 32 bits."""
     fn = _build.load("deblock").deblock_frame
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -58,16 +58,19 @@ def _check(t, name, dtype, shape, device, align=4):
 
 
 def deblock_frame_cuda(y, u, v, BSV, BSH, qp_mb, cqp_mb,
-                       mb_w: int, mb_h: int):
+                       mb_w: int, mb_h: int, alpha_off=None, beta_off=None):
     """Computes what deblock_torch.deblock_frame_device computes, but
     filters the planes IN PLACE (no copies) and returns them, (y, u, v).
     The session hands it fresh pre-deblock recon that it never reads
     again; a caller that needs the unfiltered planes clones them first.
     All tensors on one CUDA device: y [16*mb_h, 16*mb_w], u/v
-    [8*mb_h, 8*mb_w] uint8; BSV/BSH [4*mb_h, 4*mb_w] int32; qp_mb/cqp_mb
-    [mb_w*mb_h] int32. bS and QP are only read. The kernel reads whole
-    MB lines, so y must start on 16 bytes and u/v on 8 (fresh tensors
-    do). One call is one kernel launch."""
+    [8*mb_h, 8*mb_w] uint8; BSV/BSH [4*mb_h, 4*mb_w] int32; qp_mb
+    [mb_w*mb_h] int32; cqp_mb the chroma QPs, [mb_w*mb_h] int32 for both
+    planes or [2, mb_w*mb_h] for Cb and Cr; alpha_off/beta_off the
+    per-MB filter offsets, [mb_w*mb_h] int32, or None for 0. Only the
+    planes are written. The kernel reads whole MB lines, so y must start
+    on 16 bytes and u/v on 8 (fresh tensors do). One call is one kernel
+    launch."""
     global launches
     dev = y.device
     if not y.is_cuda:
@@ -78,8 +81,19 @@ def deblock_frame_cuda(y, u, v, BSV, BSH, qp_mb, cqp_mb,
     _check(v, "v", u8, (8 * mb_h, 8 * mb_w), dev, align=8)
     _check(BSV, "BSV", i32, (4 * mb_h, 4 * mb_w), dev)
     _check(BSH, "BSH", i32, (4 * mb_h, 4 * mb_w), dev)
-    _check(qp_mb, "qp_mb", i32, (mb_w * mb_h,), dev)
-    _check(cqp_mb, "cqp_mb", i32, (mb_w * mb_h,), dev)
+    n = mb_w * mb_h
+    _check(qp_mb, "qp_mb", i32, (n,), dev)
+    if cqp_mb.dim() == 2:
+        _check(cqp_mb, "cqp_mb", i32, (2, n), dev)
+        cqpu, cqpv = cqp_mb[0].data_ptr(), cqp_mb[1].data_ptr()
+    else:
+        _check(cqp_mb, "cqp_mb", i32, (n,), dev)
+        cqpu, cqpv = cqp_mb.data_ptr(), None
+    offs = []
+    for name, off in (("alpha_off", alpha_off), ("beta_off", beta_off)):
+        if off is not None:
+            _check(off, name, i32, (n,), dev)
+        offs.append(None if off is None else off.data_ptr())
     kernel = _kernel()
     # per-row progress counters and the row ticket, zero at launch; the
     # caching allocator hands the block out again only to work queued
@@ -89,7 +103,7 @@ def deblock_frame_cuda(y, u, v, BSV, BSH, qp_mb, cqp_mb,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = kernel(y.data_ptr(), u.data_ptr(), v.data_ptr(),
                      BSV.data_ptr(), BSH.data_ptr(), qp_mb.data_ptr(),
-                     cqp_mb.data_ptr(), scratch.data_ptr(), mb_w, mb_h,
+                     cqpu, cqpv, *offs, scratch.data_ptr(), mb_w, mb_h,
                      stream)
     if err != 0:
         raise RuntimeError(f"deblock kernel launch failed: CUDA error {err}")

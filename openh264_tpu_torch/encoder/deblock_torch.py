@@ -145,14 +145,18 @@ def _chroma_edge(sub, bs, alpha, beta, tc0):
 # ---------------------------------------------------------------------------
 # Plain wavefront
 # ---------------------------------------------------------------------------
-def _edge_params(BSV, BSH, qp_mb, cqp_mb, mb_w: int, mb_h: int):
+def _edge_params(BSV, BSH, qp_mb, cqp_mb, mb_w: int, mb_h: int,
+                 alpha_off=None, beta_off=None):
     """Per-MB filter parameters for every edge, as deblock_jax's ab_tc
     computes them (deblock_jax.py:226-307):
       luma  bs [n,4(e),16], alpha/beta [n,4], tc0 [n,4,16]
-      chroma bs [n,2(ce),8], alpha/beta [n,2], tc0 [n,2,8]
+      chroma bs [n,2(ce),8], alpha/beta [n,2(Cb,Cr),2], tc0 [n,2,2,8]
     for the vertical (v) and horizontal (h) passes. Edge 0 of each pass
     crosses the MB border: its bS is 0 at the picture border and its QP
-    is the average with the left (v) or top (h) MB."""
+    is the average with the left (v) or top (h) MB. cqp_mb is [n] (both
+    chroma planes) or [2, n] (Cb, Cr); alpha_off / beta_off [n] (None:
+    0) are added to an edge's QP average with the current MB's values,
+    as the decoder's oracle does (oracle/deblock.py:235-263)."""
     dev = BSV.device
     n = mb_w * mb_h
     alpha_t, beta_t, tc0_t = (_const(k, dev) for k in ("alpha", "beta",
@@ -169,20 +173,31 @@ def _edge_params(BSV, BSH, qp_mb, cqp_mb, mb_w: int, mb_h: int):
         n, 4, 4).clone()
     bsv4[:, 0] *= (x > 0).to(I32)[:, None]
     bsh4[:, 0] *= (y > 0).to(I32)[:, None]
+    zero = torch.zeros(n, dtype=I32, device=dev)
+    ao = (zero if alpha_off is None else alpha_off.to(I32))[:, None]
+    bo = (zero if beta_off is None else beta_off.to(I32))[:, None]
 
     def pack(bs4, q, nb_id, rep):
         qc = q.to(I32)
         qnb = torch.stack([qc[nb_id]] + [qc] * (bs4.shape[1] - 1), 1)
-        ia = ((qc[:, None] + qnb + 1) >> 1).clamp(0, 51).long()
+        qav = (qc[:, None] + qnb + 1) >> 1
+        ia = (qav + ao).clamp(0, 51).long()
+        ib = (qav + bo).clamp(0, 51).long()
         bs = bs4.repeat_interleave(rep, dim=2)
         tc0 = tc0_t[ia[..., None], (bs - 1).clamp(0, 2).long()]
-        return bs, alpha_t[ia], beta_t[ia], tc0
+        return bs, alpha_t[ia], beta_t[ib], tc0
+
+    def pack_chroma(bs4, nb_id):
+        cq = cqp_mb if cqp_mb.dim() == 2 else torch.stack([cqp_mb] * 2)
+        planes = [pack(bs4, cq[k], nb_id, 2) for k in range(2)]
+        return (planes[0][0],) + tuple(
+            torch.stack([p[i] for p in planes], 1) for i in (1, 2, 3))
 
     return {
         "v": pack(bsv4, qp_mb, left_id, 4),
         "h": pack(bsh4, qp_mb, top_id, 4),
-        "cv": pack(bsv4[:, ::2], cqp_mb, left_id, 2),
-        "ch": pack(bsh4[:, ::2], cqp_mb, top_id, 2),
+        "cv": pack_chroma(bsv4[:, ::2], left_id),
+        "ch": pack_chroma(bsh4[:, ::2], top_id),
     }
 
 
@@ -193,6 +208,13 @@ def _diagonals(mb_w: int, mb_h: int):
         ys = np.arange(max(0, -(-(d - mb_w + 1) // 2)), min(mb_h - 1, d // 2) + 1)
         out.append(ys * mb_w + (d - 2 * ys))
     return out
+
+
+def _per_plane(cal, cbe, ctc, ce: int):
+    """Chroma edge ce's alpha, beta [2, L, 1] and tc0 [2, L, 8], plane
+    first, for lines [2(Cb, Cr), L, 8] of the MBs gathered."""
+    return (cal[:, :, ce].T[:, :, None], cbe[:, :, ce].T[:, :, None],
+            ctc[:, :, ce].transpose(0, 1))
 
 
 def _filter_mbs(Yp, UVp, prm, ids, passes: str = "vh"):
@@ -227,7 +249,7 @@ def _filter_mbs(Yp, UVp, prm, ids, passes: str = "vh"):
                 ce = e // 2
                 C[:, :, 2:10, 4 * ce + 1:4 * ce + 3] = _chroma_edge(
                     C[:, :, 2:10, 4 * ce:4 * ce + 4], cbs[:, ce],
-                    cal[:, ce, None], cbe[:, ce, None], ctc[:, ce])
+                    *_per_plane(cal, cbe, ctc, ce))
 
     if "h" in passes:
         bs, al, be, tc = (t[ids] for t in prm["h"])
@@ -241,8 +263,7 @@ def _filter_mbs(Yp, UVp, prm, ids, passes: str = "vh"):
                 ce = e // 2
                 newc = _chroma_edge(
                     C[:, :, 4 * ce:4 * ce + 4, 2:10].transpose(2, 3),
-                    cbs[:, ce], cal[:, ce, None], cbe[:, ce, None],
-                    ctc[:, ce])
+                    cbs[:, ce], *_per_plane(cal, cbe, ctc, ce))
                 C[:, :, 4 * ce + 1:4 * ce + 3, 2:10] = newc.transpose(2, 3)
 
     # regions are disjoint; one pass alone leaves the top rows ("v") or
@@ -254,7 +275,7 @@ def _filter_mbs(Yp, UVp, prm, ids, passes: str = "vh"):
 
 
 def _deblock_in_order(y, u, v, BSV, BSH, qp_mb, cqp_mb, mb_w: int,
-                      mb_h: int, steps):
+                      mb_h: int, steps, alpha_off=None, beta_off=None):
     """Filters one frame by running `_filter_mbs` on each step, an (MB
     ids, passes) pair, in turn; returns new (y, u, v) uint8 planes. The
     result is the frame's deblock when each MB's passes come in order,
@@ -262,7 +283,8 @@ def _deblock_in_order(y, u, v, BSV, BSH, qp_mb, cqp_mb, mb_w: int,
     dev = y.device
     H, W = y.shape
     Hc, Wc = u.shape
-    prm = _edge_params(BSV, BSH, qp_mb, cqp_mb, mb_w, mb_h)
+    prm = _edge_params(BSV, BSH, qp_mb, cqp_mb, mb_w, mb_h, alpha_off,
+                       beta_off)
     # zero-padded working planes (4 luma / 2 chroma rows and columns of
     # top-left halo), filtered in place step by step
     Yp = torch.zeros((H + 4, W + 4), dtype=I32, device=dev)
@@ -277,24 +299,28 @@ def _deblock_in_order(y, u, v, BSV, BSH, qp_mb, cqp_mb, mb_w: int,
 
 
 def deblock_frame_device(y, u, v, BSV, BSH, qp_mb, cqp_mb,
-                         mb_w: int, mb_h: int):
+                         mb_w: int, mb_h: int, alpha_off=None,
+                         beta_off=None):
     """Filter one frame; returns new (y, u, v) uint8 planes.
 
     y/u/v: uint8 planes (MB-aligned); BSV/BSH: [4*mb_h, 4*mb_w] int32;
-    qp_mb / cqp_mb: [n_mb] int32 luma / chroma QP per MB.
-    Single-slice semantics (left/top availability = picture border),
-    alpha/beta offsets 0 — the session's configuration. Runs the knight
-    diagonals in order, one batch of both passes each.
+    qp_mb: [n_mb] int32 luma QP per MB; cqp_mb: [n_mb] chroma QP of both
+    planes, or [2, n_mb] of Cb and Cr; alpha_off / beta_off: [n_mb]
+    int32 filter offsets per MB, or None for 0. Left/top availability
+    is the picture border; slice edges and skipped MBs come as bS 0.
+    Runs the knight diagonals in order, one batch of both passes each.
     """
     return _deblock_in_order(y, u, v, BSV, BSH, qp_mb, cqp_mb, mb_w, mb_h,
-                             [(d, "vh") for d in _diagonals(mb_w, mb_h)])
+                             [(d, "vh") for d in _diagonals(mb_w, mb_h)],
+                             alpha_off, beta_off)
 
 
 def deblock_frame_auto(y, u, v, BSV, BSH, qp_mb, cqp_mb,
-                       mb_w: int, mb_h: int):
-    """The session's deblock: a CUDA tensor goes to the Hopper kernel
+                       mb_w: int, mb_h: int, alpha_off=None, beta_off=None):
+    """The deblock of every path: a CUDA tensor goes to the Hopper kernel
     (deblock_cuda.py), a CPU tensor to the plain version. Both return
     the filtered planes; the kernel filters the input planes in place,
     so a caller reads only what is returned."""
     fn = deblock_frame_cuda if y.is_cuda else deblock_frame_device
-    return fn(y, u, v, BSV, BSH, qp_mb, cqp_mb, mb_w, mb_h)
+    return fn(y, u, v, BSV, BSH, qp_mb, cqp_mb, mb_w, mb_h, alpha_off,
+              beta_off)

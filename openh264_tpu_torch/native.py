@@ -1,12 +1,15 @@
-"""Host C of the host encoder, bound with ctypes: the I-frame intra mode
-decision and encode (`enc_intra_frame_native`) and the token bit packer
-(`bitpack`).
+"""Host C of the host encoder and the decoder, bound with ctypes: the
+I-frame intra mode decision and encode (`enc_intra_frame_native`), the
+token bit packer (`bitpack`), the decoder's CAVLC slice parser
+(`parse_cavlc_slice_native`) and its intra reconstruction
+(`recon_intra_mbs_native`).
 
-Port of the two functions of openh264_tpu/native/__init__.py that the
-host encoder's path runs; the C is csrc/host_native.c, built with the
-host compiler by _build.py at first use. Unlike the JAX package, which
-falls back to numpy or to I16-only intra when its C does not build,
-this module has no fallback: a failed build raises.
+Port of the functions of openh264_tpu/native/__init__.py that these
+paths run; the C is csrc/host_native.c and csrc/parse_cavlc.c, built
+with the host compiler by _build.py at first use. Unlike the JAX
+package, which falls back to numpy, to I16-only intra or to its Python
+parser when its C does not build, this module has no fallback: a failed
+build raises.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import functools
 import numpy as np
 
 from . import _build
-from .tables import DEQUANT_4x4, QUANT_MF_4x4
+from .tables import CHROMA_QP_TABLE, DEQUANT_4x4, QUANT_MF_4x4, ZIGZAG_4x4
 
 
 @functools.lru_cache(maxsize=None)
@@ -29,6 +32,16 @@ def _lib() -> ctypes.CDLL:
                             ctypes.c_size_t]
     lib.enc_intra_frame.restype = None
     lib.enc_intra_frame.argtypes = [ctypes.c_void_p] * 2
+    lib.recon_intra_mbs.restype = None
+    lib.recon_intra_mbs.argtypes = [ctypes.c_void_p] * 2
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _parse_lib() -> ctypes.CDLL:
+    lib = _build.load("parse_cavlc")
+    lib.parse_cavlc_slice.restype = ctypes.c_int
+    lib.parse_cavlc_slice.argtypes = [ctypes.c_void_p] * 3
     return lib
 
 
@@ -93,3 +106,128 @@ def enc_intra_frame_native(y, u, v, qp: int, qp_c: int, lam: int,
             "luma_dc": ldc.reshape(n, 4, 4), "luma_ac": lac,
             "chroma_dc": cdc, "chroma_ac": cac,
             "recon_y": ry, "recon_u": ru, "recon_v": rv}
+
+
+# ---------------------------------------------------------------------------
+# The decoder: CAVLC slice parser and intra recon
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _cavlc_tables() -> dict:
+    """The parser's VLC LUTs and tables as contiguous arrays."""
+    from .tables.cavlc import (CBP_I16x16, CBP_INTER, CBP_INTRA,
+                               COEFF_TOKEN_LUTS, RUN_BEFORE_LUTS,
+                               TOTAL_ZEROS_CDC_LUTS, TOTAL_ZEROS_LUTS)
+
+    def stack(luts, n, size):
+        return np.ascontiguousarray(np.stack(
+            [luts[i] if i < len(luts) and luts[i] is not None
+             else np.zeros(size, np.uint32) for i in range(n)]), np.uint32)
+    return {
+        "ct": np.ascontiguousarray(np.stack(COEFF_TOKEN_LUTS), np.uint32),
+        "tz": stack(TOTAL_ZEROS_LUTS, 16, 512),
+        "tzc": stack(TOTAL_ZEROS_CDC_LUTS, 4, 8),
+        "rb": stack(RUN_BEFORE_LUTS, 8, 2048),
+        "cbp_inter": np.ascontiguousarray(CBP_INTER, np.int32),
+        "cbp_intra": np.ascontiguousarray(CBP_INTRA, np.int32),
+        "cbp_i16": np.ascontiguousarray(CBP_I16x16, np.int32),
+        "cqp": np.ascontiguousarray(CHROMA_QP_TABLE, np.int32),
+        "zz": np.ascontiguousarray(ZIGZAG_4x4, np.int32),
+    }
+
+
+def parse_cavlc_slice_native(br, ctx) -> int:
+    """Parses one I or P CAVLC slice's data (no 8x8 transform, no FMO:
+    the caller refuses those) from br's bit position into ctx.fs, and
+    returns the index one past its last MB. Raises EOFError on a
+    bitstream overrun and ValueError on an invalid code, with br.pos and
+    the MBs parsed so far left as the C left them (the decoder conceals
+    the rest)."""
+    from .decoder.mvpred import ensure_motion_grids
+    from .decoder.slicehdr import I_SLICE, P_SLICE
+    sh, fs = ctx.sh, ctx.fs
+    if sh.slice_type not in (I_SLICE, P_SLICE) or \
+            sh.pps.transform_8x8_mode or sh.pps.num_slice_groups > 1:
+        raise ValueError("parse_cavlc_slice_native: I/P slices without "
+                         "the 8x8 transform or FMO only")
+    ensure_motion_grids(fs)
+    t = _cavlc_tables()
+    n_mb = fs.n_mb
+    ipcm_buf = np.zeros((n_mb, 384), np.uint8)
+    ipcm_flag = np.zeros(n_mb, np.uint8)
+    l0_ids = np.array(
+        [p.pic_id if p is not None else -1 for p in ctx.ref_list0],
+        np.int32)
+    if len(l0_ids) == 0:
+        l0_ids = np.zeros(1, np.int32)
+    rbsp = np.frombuffer(br.data, np.uint8)
+    t8 = np.zeros(n_mb, np.uint8)
+    arrs = [rbsp, t["ct"], t["tz"], t["tzc"], t["rb"], t["cbp_inter"],
+            t["cbp_intra"], t["cbp_i16"], ctx.dq.eff4(), t["cqp"], t["zz"],
+            fs.mb_type, fs.slice_id, fs.i4_grid, fs.i16_mode, fs.i4_modes,
+            fs.chroma_mode, fs.cbp, fs.qp, fs.nzc_l, fs.nzc_c,
+            fs.coeffs_l, fs.coeffs_c, fs.mv, fs.refidx, fs.ref_pic,
+            fs.pred_mode, fs.gmv, fs.gref, fs.gwritten, fs.grefw,
+            l0_ids, fs.disable_deblock, fs.alpha_offset, fs.beta_offset,
+            fs.mb_correct, ipcm_buf, ipcm_flag, t8]
+    for a in arrs:
+        if not a.flags["C_CONTIGUOUS"]:
+            raise ValueError("parse_cavlc_slice_native: non-contiguous "
+                             "symbol array")
+    ptrs = np.array([a.ctypes.data for a in arrs], np.uint64)
+    params = np.array([
+        br.nbits, br.pos, 0 if sh.slice_type == P_SLICE else 2,
+        sh.first_mb_in_slice, fs.mb_w, fs.mb_h, ctx.slice_idx, ctx.qp,
+        sh.num_ref_idx_l0_active, int(ctx.constrained_intra),
+        sh.disable_deblocking_filter_idc, sh.slice_alpha_c0_offset,
+        sh.slice_beta_offset, sh.pps.chroma_qp_index_offset,
+        sh.pps.second_chroma_qp_index_offset, len(l0_ids)], np.int32)
+    out = np.zeros(4, np.int32)
+    _parse_lib().parse_cavlc_slice(ptrs.ctypes.data, params.ctypes.data,
+                                   out.ctypes.data)
+    br.pos = int(out[1])
+    if out[2] == 1:
+        raise EOFError("bitstream overrun (native CAVLC parse)")
+    if out[2] != 0:
+        raise ValueError("invalid CAVLC bitstream (native parse)")
+    fs.chroma_qp_offsets = (sh.pps.chroma_qp_index_offset,
+                            sh.pps.second_chroma_qp_index_offset)
+    for idx in np.nonzero(ipcm_flag)[0]:
+        raw = ipcm_buf[idx]
+        fs.ipcm[int(idx)] = (raw[:256].reshape(16, 16).copy(),
+                             raw[256:320].reshape(8, 8).copy(),
+                             raw[320:].reshape(8, 8).copy())
+    return int(out[0])
+
+
+def recon_intra_mbs_native(y, u, v, fs, intra_list, constrained: bool):
+    """Intra recon of the I4x4 / I16x16 / IPCM MBs `intra_list` (raster
+    order) into the host uint8 planes y, u, v in place (MB aligned,
+    C-contiguous). I8x8 MBs are refused."""
+    from .decoder.framedata import MB_I8x8
+    if (fs.mb_type[intra_list] == MB_I8x8).any():
+        raise ValueError("recon_intra_mbs_native: no I8x8 MBs")
+    n_mb = fs.n_mb
+    ipcm_flag = np.zeros(n_mb, np.uint8)
+    ipcm_buf = np.zeros((1, 384), np.uint8)
+    if fs.ipcm:
+        ipcm_buf = np.zeros((n_mb, 384), np.uint8)
+        for idx, (py, pu, pv) in fs.ipcm.items():
+            ipcm_flag[idx] = 1
+            ipcm_buf[idx, :256] = np.asarray(py, np.uint8).reshape(-1)
+            ipcm_buf[idx, 256:320] = np.asarray(pu, np.uint8).reshape(-1)
+            ipcm_buf[idx, 320:] = np.asarray(pv, np.uint8).reshape(-1)
+    mb_list = np.ascontiguousarray(intra_list, np.int32)
+    arrs = [y, u, v, fs.mb_type, fs.slice_id, fs.i16_mode, fs.i4_modes,
+            fs.chroma_mode, fs.coeffs_l, fs.coeffs_c, ipcm_buf, ipcm_flag,
+            mb_list]
+    if y.shape != (16 * fs.mb_h, 16 * fs.mb_w) or \
+            u.shape != (8 * fs.mb_h, 8 * fs.mb_w) or v.shape != u.shape or \
+            any(p.dtype != np.uint8 for p in (y, u, v)):
+        raise ValueError("recon_intra_mbs_native: MB-aligned uint8 planes")
+    for a in arrs:
+        if not a.flags["C_CONTIGUOUS"]:
+            raise ValueError("recon_intra_mbs_native: non-contiguous array")
+    ptrs = np.array([a.ctypes.data for a in arrs], np.uint64)
+    params = np.array([fs.mb_w, fs.mb_h, len(mb_list), int(constrained)],
+                      np.int32)
+    _lib().recon_intra_mbs(ptrs.ctypes.data, params.ctypes.data)

@@ -1,8 +1,8 @@
 """CAVLC VLC code tables (ITU-T H.264 §9.2, Tables 9-4/9-5/9-7/9-8/9-9/9-10).
 
-Copied from openh264_tpu/tables/cavlc.py, encode side only: the port
-writes CAVLC and never parses it, so the decode LUT builders are left
-out. Each table holds (value, length) per symbol.
+Copied from openh264_tpu/tables/cavlc.py. Each table holds (value,
+length) per symbol; the decode LUTs at the end feed the decoder's host C
+parser (csrc/parse_cavlc.c).
 
 All values are constants prescribed by the standard (reference parity
 anchor: codec/encoder/core/src/encoder_data_tables.cpp:84-314).
@@ -177,3 +177,60 @@ CBP_I16x16 = np.array([0, 16, 32, 15, 31, 47], dtype=np.int32)
 
 # nC mapping used when picking the coeff_token class: nC value -> class
 NC_TO_CLASS = np.array([0, 0, 1, 1, 2, 2, 2, 2] + [3] * 9 + [3], dtype=np.int32)
+
+
+# --------------------------------------------------------------------------
+# Decode LUT generation
+# --------------------------------------------------------------------------
+def _build_lut(entries, bits):
+    """entries: list of (value, length, payload...); returns uint32 LUT of
+    size 2^bits mapping bit-prefix -> packed (payload..., length) or 0 if
+    invalid. Packing: (tc<<10 | t1<<5 | len) for coeff_token;
+    generic: (sym<<5 | len)."""
+    lut = np.zeros(1 << bits, dtype=np.uint32)
+    for val, ln, packed in entries:
+        base = val << (bits - ln)
+        span = 1 << (bits - ln)
+        assert (lut[base:base + span] == 0).all(), "VLC prefix collision"
+        lut[base:base + span] = packed
+    return lut
+
+
+_MAX_CT_BITS = 16
+
+
+def build_coeff_token_luts():
+    """Per nc-class LUT over 16-bit prefix -> (tc<<10)|(t1<<7)|len, 0=invalid."""
+    luts = []
+    for cls in range(5):
+        entries = []
+        for tc in range(17):
+            for t1 in range(4):
+                val, ln = int(COEFF_TOKEN[cls, tc, t1, 0]), int(COEFF_TOKEN[cls, tc, t1, 1])
+                if ln == 0:
+                    continue  # unused (tc,t1) slot
+                entries.append((val, ln, (tc << 10) | (t1 << 7) | ln))
+        luts.append(_build_lut(entries, _MAX_CT_BITS))
+    return luts
+
+
+def build_simple_luts(table, bits):
+    """For TOTAL_ZEROS / RUN_BEFORE style [ctx][sym] = (val, len) tables:
+    returns [ctx] list of LUTs prefix -> (sym<<5)|len."""
+    nctx = table.shape[0]
+    luts = []
+    for c in range(nctx):
+        entries = []
+        for sym in range(table.shape[1]):
+            val, ln = int(table[c, sym, 0]), int(table[c, sym, 1])
+            if ln == 0:
+                continue
+            entries.append((val, ln, (sym << 5) | ln))
+        luts.append(_build_lut(entries, bits) if entries else np.zeros(1 << bits, np.uint32))
+    return luts
+
+
+COEFF_TOKEN_LUTS = build_coeff_token_luts()
+TOTAL_ZEROS_LUTS = build_simple_luts(TOTAL_ZEROS, 9)
+TOTAL_ZEROS_CDC_LUTS = build_simple_luts(TOTAL_ZEROS_CHROMA_DC, 3)
+RUN_BEFORE_LUTS = build_simple_luts(RUN_BEFORE, 11)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels: their contract on the CPU, and their
-equality with the plain PyTorch versions on a GPU; the host encoder and
-the API (CAVLC and CABAC), threaded simulcast, GOP parallelism and the
-processing functions on a GPU against the same on the CPU, and the host
-C build on the GPU's machine.
+equality with the plain PyTorch versions on a GPU (with per-MB alpha /
+beta offsets and separate Cb / Cr QPs too); the host encoder and the API
+(CAVLC and CABAC), threaded simulcast, GOP parallelism, the processing
+functions and the decoder on a GPU against the same on the CPU, and the
+host C build on the GPU's machine.
 
 This file imports nothing of JAX, so the card's tests also run on a
 machine without it:
@@ -57,9 +58,10 @@ def test_cuda_source_tables_match():
 
 
 def test_entry_point_declares_pointer_types(monkeypatch):
-    """Pointers (the 7 tensors and the progress scratch) and the stream
-    must go through ctypes as void*: with the default int argument type
-    they would be cut to 32 bits."""
+    """Pointers (the 10 tensors, of which the Cr QPs and the two offsets
+    may be null, and the progress scratch) and the stream must go through
+    ctypes as void*: with the default int argument type they would be cut
+    to 32 bits."""
     import ctypes
 
     class FakeLib:
@@ -69,7 +71,7 @@ def test_entry_point_declares_pointer_types(monkeypatch):
     dc._kernel.cache_clear()
     try:
         fn = dc._kernel()
-        assert fn.argtypes == [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 \
+        assert fn.argtypes == [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 \
             + [ctypes.c_void_p]
         assert fn.restype is ctypes.c_int
     finally:
@@ -92,6 +94,53 @@ def test_auto_dispatch_on_cpu_is_plain():
     want = dt.deblock_frame_device(*args, 6, 5)
     assert dc.launches == n0
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _offsets(mbw, mbh, seed):
+    """Per-MB alpha / beta offsets (-12..12, even, as slices send them)
+    and Cb / Cr QPs 14 apart at most."""
+    rng = np.random.default_rng(seed)
+    n = mbw * mbh
+    return [torch.from_numpy(a) for a in (
+        rng.integers(-6, 7, n).astype(np.int32) * 2,
+        rng.integers(-6, 7, n).astype(np.int32) * 2,
+        rng.integers(18, 42, (2, n)).astype(np.int32))]
+
+
+def test_plain_offsets_zero_and_equal_chroma_qps_change_nothing():
+    """The plain version with zero offsets and a [2, n] chroma QP of two
+    equal rows gives what it gives without them, and with offsets it
+    gives something else: the encoders pass neither and keep their
+    bytes."""
+    args = _inputs(6, 5, 13, blocky=True)
+    n = 30
+    want = dt.deblock_frame_device(*args, 6, 5)
+    zero = torch.zeros(n, dtype=torch.int32)
+    got = dt.deblock_frame_device(*args[:6], torch.stack([args[6]] * 2),
+                                  6, 5, zero, zero)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    ao, bo, cqp2 = _offsets(6, 5, 13)
+    other = dt.deblock_frame_device(*args[:6], cqp2, 6, 5, ao, bo)
+    assert any(not torch.equal(g, w) for g, w in zip(other, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mbw,mbh,seed", [(6, 5, 20), (80, 45, 21),
+                                          (2, 300, 22)])
+def test_cuda_kernel_with_offsets_matches_plain(mbw, mbh, seed):
+    """The decoder's inputs: per-MB alpha / beta offsets and separate Cb
+    and Cr QPs, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = [a.cuda() for a in _inputs(mbw, mbh, seed, blocky=True)]
+    ao, bo, cqp2 = (a.cuda() for a in _offsets(mbw, mbh, seed))
+    want = dt.deblock_frame_device(*args[:6], cqp2, mbw, mbh, ao, bo)
+    n0 = dc.launches
+    got = dc.deblock_frame_cuda(*args[:6], cqp2, mbw, mbh, ao, bo)
+    torch.cuda.synchronize()
+    assert dc.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -357,3 +406,51 @@ def test_cuda_processing_matches_cpu():
         got = fn(*[t.cuda() for t in host])
         for g, w in zip(got, want):
             assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# The decoder on the card
+# ---------------------------------------------------------------------------
+def _decoder_stream(cut):
+    """3 slices a picture, 5 pictures at 96x64 from the port's encoder on
+    the CPU; with `cut`, slice 1 of picture 2 cut to half its bytes (the
+    decoder conceals it, and pictures 3-4 predict from the concealment)."""
+    from openh264_tpu_torch.bitstream import (NAL_IDR, NAL_SLICE,
+                                              make_annexb_nal, split_annexb)
+    from openh264_tpu_torch.encoder.config import EncoderConfig
+    from openh264_tpu_torch.encoder.encoder import H264Encoder
+    enc = H264Encoder(EncoderConfig(width=HW, height=HH, qp=28,
+                                    num_slices=3), device="cpu")
+    bs = b"".join(enc.encode_frame(*f) for f in _host_frames(5, seed=7))
+    out, pic, k = [], -1, 0
+    for nal in split_annexb(bs):
+        rbsp = nal.rbsp
+        if nal.nal_unit_type in (NAL_SLICE, NAL_IDR):
+            if rbsp[0] & 0x80:
+                pic, k = pic + 1, 0
+            if cut and (pic, k) == (2, 1):
+                rbsp = rbsp[:len(rbsp) // 2]
+            k += 1
+        out.append(make_annexb_nal(nal.nal_ref_idc, nal.nal_unit_type, rbsp))
+    return b"".join(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut,ec_mode", [(False, 2), (True, 2), (True, 6)])
+def test_cuda_decoder_matches_cpu(cut, ec_mode):
+    """H264Decoder on the card gives the CPU decode's frames, launching
+    the deblock kernel once per picture (the concealed one included);
+    the pictures after a concealed one show that the DPB's device planes
+    were refreshed from the concealment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from openh264_tpu_torch.decoder import H264Decoder
+    bs = _decoder_stream(cut)
+    want = H264Decoder(device="cpu", ec_mode=ec_mode).decode_annexb(bs)
+    n0 = dc.launches
+    got = H264Decoder(device="cuda", ec_mode=ec_mode).decode_annexb(bs)
+    assert dc.launches - n0 == 5
+    assert len(got) == len(want) == (4 if cut else 5)
+    for g, w in zip(got, want):
+        for c in "yuv":
+            assert np.array_equal(getattr(g, c), getattr(w, c))

@@ -124,7 +124,7 @@ def test_ltr_recovery_without_ltr_forces_idr():
     assert bs[2][4] & 0x1f == 7
 
 
-def test_cabac_raises_not_implemented():
+def test_cabac_with_i4x4_matches_jax():
     """CABAC, which the port once refused with NotImplementedError, now
     encodes byte-identically with the JAX encoder: with enable_i4x4 set,
     the IDR still takes the I16 wavefront (host C I4x4 is CAVLC-only),

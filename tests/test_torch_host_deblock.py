@@ -152,13 +152,14 @@ def test_hand_made_disable_deblock(seed, dd):
 def test_inputs_zero_the_skipped_edges():
     """deblock_inputs zeroes exactly the slice-top edges of idc-2 MBs and
     every edge of idc-1 MBs; the QPs pass through, the chroma QP with
-    offset 0."""
+    offset 0 as one row for both planes, and zero offsets as None."""
     from openh264_tpu_torch.oracle.deblock_bs import precompute_bs
     from openh264_tpu_torch.tables import CHROMA_QP_TABLE
     fs = _port_fs(_random_fs(5, lambda rng, n: np.full(n, 2)))
     fs.disable_deblock[7] = 1                    # MB (1, 1)
     bsv0, bsh0 = precompute_bs(fs)
-    bsv, bsh, qp, cqp = deblock_host.deblock_inputs(fs)
+    bsv, bsh, qp, cqp, ao, bo = deblock_host.deblock_inputs(fs)
+    assert ao is None and bo is None
     np.testing.assert_array_equal(qp, fs.qp)
     np.testing.assert_array_equal(cqp, CHROMA_QP_TABLE[fs.qp])
     want_h = bsh0.copy()
@@ -172,10 +173,21 @@ def test_inputs_zero_the_skipped_edges():
 
 
 def test_inputs_refuse_offsets():
-    """The kernel has no alpha / beta offsets; the encoder's FrameSymbols
-    carry none, and anything else is refused."""
+    """Alpha / beta offsets and two chroma QP offsets, which the kernel
+    once refused, now pass through per MB (the decoder's slices carry
+    them); what deblock_inputs still refuses is the 8x8 transform, whose
+    interior edges the kernel does not skip."""
+    from openh264_tpu_torch.tables import CHROMA_QP_TABLE
     fs = _port_fs(_random_fs(6, lambda rng, n: np.zeros(n)))
     fs.alpha_offset[:] = 2
+    fs.beta_offset[3] = -4
+    fs.chroma_qp_offsets = (2, -3)
+    _bsv, _bsh, qp, cqp, ao, bo = deblock_host.deblock_inputs(fs)
+    np.testing.assert_array_equal(ao, fs.alpha_offset)
+    np.testing.assert_array_equal(bo, fs.beta_offset)
+    np.testing.assert_array_equal(cqp, CHROMA_QP_TABLE[
+        np.clip(np.stack([qp + 2, qp - 3]), 0, 51)])
+    fs.transform8[5] = True
     with pytest.raises(ValueError):
         deblock_host.deblock_inputs(fs)
 

@@ -8,8 +8,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the deblock kernel from csrc/deblock.cu with nvcc, and the
-     host C of the host encoder and the decoder from csrc/host_native.c
-     and csrc/parse_cavlc.c with cc, all at once;
+     host C of the host encoder and the decoder from csrc/host_native.c,
+     csrc/parse_cavlc.c and csrc/cabac_residual.c with cc, all at once;
   3. each kernel against its plain PyTorch version on the card, exact
      equality, on many grids and in 50 repeats, and both timed with
      CUDA events; the deblock kernel also with the decoder's inputs
@@ -50,7 +50,20 @@ Phases, each fatal on failure:
      all at once and untimed: the CPU decodes of the first 2 frames of
      each stream in worker processes, which must equal the CUDA frames,
      CWelsDecoder on api_cavlc's stream, and the h264dec console as a
-     subprocess, whose YUV file must equal the decoder's frames.
+     subprocess, whose YUV file must equal the decoder's frames;
+  9. the decoder's parse layer, on streams the script already wrote: the
+     CABAC streams of phase 7 (api_cabac, host_cabac_4slice_rc), each
+     decoded once on the card (frames/s, seconds per stage, one deblock
+     launch per picture), api_cabac's frames equal to its encoder's
+     reconstruction and CWelsDecoder's; phase 4's rc_4slice_2tid with
+     its PPS rewritten to six sent 4x4 scaling lists and two chroma QP
+     offsets and its slice headers to deblocking_filter_idc 2 with
+     per-slice alpha/beta offsets (2 frames); and a two-slice-group FMO
+     stream at 176x144 built here (an IDR of one-row bands, deblocking
+     off, then a P picture of skipped MBs), which the per-MB Python
+     parser decodes (its seconds per MB), equal to the per-row
+     reconstruction; every one of these equal to a CPU decode in a
+     worker process that ran beside the card's decodes.
 It prints a `kernels` JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a GPU, or without the package beside it, it exits non-zero and
@@ -83,7 +96,8 @@ REST_FRAMES = 4        # phase 7 runs: 1 IDR + 3 P
 REST_CROSS = 2         # phase 7 frames encoded on both CUDA and the CPU
 REST_SEED = 2024       # phase 7 content
 GOP_FRAMES = 8         # phase 7 GOP parallelism: 2 closed GOPs of 4
-DEC_CROSS = 2          # phase 8 frames decoded on both CUDA and the CPU
+DEC_CROSS = 2          # phase 8, 9 frames decoded on both CUDA and the CPU
+FMO_W, FMO_H = 176, 144  # phase 9 FMO stream (the Python parser's)
 CPU_THREADS = 2        # torch threads of each CPU cross-check process
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, used for 32-bit integer work
@@ -612,15 +626,16 @@ def phase_host_encoder(dev, card: str):
     return out, launches, first_runs, {"api_cavlc": recon}
 
 
-def _timed_host_run(name, kind, kw, dev, fr, card):
+def _timed_host_run(name, kind, kw, dev, fr, card, recon=None):
     """One timed run of the host encoder / API: its bytes per frame, and
     frames/s, IDR and median P seconds; the deblock kernel must launch
-    once per deblocked frame."""
+    once per deblocked frame. With a `recon` list, each frame's
+    reconstruction is kept there (host_encode)."""
     import torch
     from openh264_tpu_torch.encoder import deblock_cuda
     deblock_cuda.launches = 0
     t0 = time.perf_counter()
-    bs, secs, _encode = host_encode(kind, kw, dev, fr, {})
+    bs, secs, _encode = host_encode(kind, kw, dev, fr, {}, recon)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n_launch = deblock_cuda.launches
@@ -847,13 +862,17 @@ def phase_rest(dev, card):
     """Phase 7: CABAC (API, H264Encoder with 4 slices and RC), simulcast,
     GOP parallelism and the processing functions at 720p, timed one by
     one; then the console and the CPU cross-checks, untimed and at once.
-    Returns the summary and the deblock launches of the timed runs."""
+    Returns the summary, the deblock launches of the timed runs, the
+    CABAC runs' bytes per frame and api_cabac's reconstruction per
+    frame (for phase 9)."""
     fr = frames_720p(REST_FRAMES, seed=REST_SEED)
-    out, cuda_bytes, launches = {}, {}, 0
+    out, cuda_bytes, launches, recon = {}, {}, 0, []
     for name, (kind, kw) in REST_CONFIGS.items():
-        cuda_bytes[name], out[name] = _timed_host_run(name, kind, kw, dev,
-                                                      fr, card)
+        cuda_bytes[name], out[name] = _timed_host_run(
+            name, kind, kw, dev, fr, card,
+            recon if name == "api_cabac" else None)
         launches += out[name]["deblock_launches"]
+    cabac = {name: cuda_bytes[name] for name in REST_CONFIGS}
     out["simulcast"], cuda_bytes["simulcast"], n = phase_simulcast(dev, fr,
                                                                    card)
     launches += n
@@ -876,7 +895,7 @@ def phase_rest(dev, card):
                 fail(f"{name}: CUDA and CPU streams differ")
             print(f"rest cross-check {name}: CUDA and CPU Annex-B "
                   f"byte-identical")
-    return out, launches
+    return out, launches, cabac, {"api_cabac": recon}
 
 
 def cpu_decode(data: bytes):
@@ -901,10 +920,10 @@ def same_frames(got, want) -> bool:
         for g, w in zip(got, want))
 
 
-def timed_decode(name, data, coded, dev, card):
+def timed_decode(name, data, coded, dev, card, size=(W720, H720)):
     """One timed decode of `data` with seconds per stage; the deblock
-    kernel must launch once per picture, and `coded` frames of 1280x720
-    must come out. Returns the frames and the run's numbers."""
+    kernel must launch once per picture, and `coded` frames of `size`
+    (1280x720) must come out. Returns the frames and the run's numbers."""
     import torch
     from openh264_tpu_torch.decoder import H264Decoder
     from openh264_tpu_torch.encoder import deblock_cuda
@@ -916,15 +935,16 @@ def timed_decode(name, data, coded, dev, card):
     dt = time.perf_counter() - t0
     n_launch = deblock_cuda.launches
     stages = {k: round(v, 4) for k, v in dec.stage_seconds.items()}
-    print(f"decoder {name}: {len(frames)} frames {W720}x{H720} in {dt:.3f} "
+    w, h = size
+    print(f"decoder {name}: {len(frames)} frames {w}x{h} in {dt:.3f} "
           f"s = {len(frames) / dt:.3f} frames/s ({len(data)} bytes) on "
           f"{card}; stage seconds {stages}; deblock kernel launches "
           f"{n_launch}")
     if len(frames) != coded:
         fail(f"decoder {name}: {len(frames)} frames for {coded} coded")
-    if any(f.y.shape != (H720, W720) or f.u.shape != (H720 // 2, W720 // 2)
+    if any(f.y.shape != (h, w) or f.u.shape != (h // 2, w // 2)
            or f.v.shape != f.u.shape for f in frames):
-        fail(f"decoder {name}: cropped frames are not {W720}x{H720}")
+        fail(f"decoder {name}: cropped frames are not {w}x{h}")
     if n_launch != len(frames):
         fail(f"decoder {name}: deblock kernel launched {n_launch} times for "
              f"{len(frames)} decoded pictures")
@@ -1026,6 +1046,255 @@ def phase_decoder(dev, card, streams, recons):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the decoder's parse layer
+# ---------------------------------------------------------------------------
+def write_pps_with(p, lists, chroma_offsets) -> bytes:
+    """A PPS RBSP with the fields of the parsed PPS `p` (one slice
+    group), its chroma QP offsets set to `chroma_offsets` (Cb, Cr) and a
+    pic_scaling_matrix that sends the six 4x4 `lists` (zigzag order)."""
+    from openh264_tpu_torch.bitstream import BitWriter
+    w = BitWriter()
+    w.ue(p.pps_id)
+    w.ue(p.sps_id)
+    w.flag(p.entropy_coding_mode)
+    w.flag(p.pic_order_present)
+    w.ue(0)                              # num_slice_groups_minus1
+    w.ue(p.num_ref_idx_l0_active - 1)
+    w.ue(p.num_ref_idx_l1_active - 1)
+    w.flag(p.weighted_pred)
+    w.u(2, p.weighted_bipred_idc)
+    w.se(p.pic_init_qp - 26)
+    w.se(p.pic_init_qs - 26)
+    w.se(chroma_offsets[0])
+    w.flag(p.deblocking_filter_control_present)
+    w.flag(p.constrained_intra_pred)
+    w.flag(p.redundant_pic_cnt_present)
+    w.flag(False)                        # transform_8x8_mode
+    w.flag(True)                         # pic_scaling_matrix_present
+    for lst in lists:
+        w.flag(True)                     # the list is sent
+        last = 8
+        for v in lst:
+            w.se((v - last + 128) % 256 - 128)   # delta_scale
+            last = v
+    w.se(chroma_offsets[1])
+    w.rbsp_trailing_bits()
+    return w.get_bytes()
+
+
+def rewrite_for_parse_layer(data: bytes) -> bytes:
+    """`data` (CAVLC, deblock idc 0 with zero offsets, several slices a
+    picture) with its PPS rewritten by write_pps_with (seeded lists,
+    chroma QP offsets 3 and -2) and each slice header's deblocking
+    fields rewritten to idc 2 with alpha/beta offsets that differ from
+    slice to slice; the slice data bits follow unchanged. Copied from
+    the tests' stream rewrites (tests/test_torch_streams.py), which the
+    script does not import."""
+    from openh264_tpu_torch.bitstream import (BitReader, BitWriter, NAL_IDR,
+                                              NAL_PPS, NAL_SLICE, NAL_SPS,
+                                              make_annexb_nal, split_annexb)
+    from openh264_tpu_torch.decoder.params import parse_pps, parse_sps
+    from openh264_tpu_torch.decoder.slicehdr import parse_slice_header
+    rng = np.random.default_rng(REST_SEED)
+    lists = [[int(x) for x in rng.integers(4, 65, 16)] for _ in range(6)]
+    div2 = [(2, -1), (-3, 3), (6, -6), (-1, 4)]
+    sps, pps, out, k = {}, {}, [], 0
+    for nal in split_annexb(data):
+        rbsp = nal.rbsp
+        if nal.nal_unit_type == NAL_SPS:
+            sp = parse_sps(rbsp)
+            sps[sp.sps_id] = sp
+        elif nal.nal_unit_type == NAL_PPS:
+            pp = parse_pps(rbsp, sps)
+            pps[pp.pps_id] = pp
+            rbsp = write_pps_with(pp, lists, (3, -2))
+        elif nal.nal_unit_type in (NAL_SLICE, NAL_IDR):
+            sh = parse_slice_header(BitReader(rbsp), nal, sps, pps)
+            if (sh.disable_deblocking_filter_idc, sh.slice_alpha_c0_offset,
+                    sh.slice_beta_offset) != (0, 0, 0):
+                fail("parse layer: the stream to rewrite is not deblock "
+                     "idc 0 with zero offsets")
+            bits = np.unpackbits(np.frombuffer(rbsp, np.uint8))
+            bits = bits[:np.flatnonzero(bits)[-1]]   # without the stop bit
+            w = BitWriter()
+            w.ue(2)                              # disable_deblocking_filter_idc
+            for off in div2[k % len(div2)]:      # alpha, beta offset / 2
+                w.se(off)
+            k += 1
+            n_mid = w.nbits
+            w.byte_align(0)
+            mid = np.unpackbits(np.frombuffer(w.get_bytes(), np.uint8))
+            # ue(0) se(0) se(0), the header's last 3 bits, become mid
+            pos = sh.header_bits
+            new = np.concatenate([bits[:pos - 3], mid[:n_mid], bits[pos:],
+                                  [1]]).astype(np.uint8)
+            rbsp = np.packbits(new).tobytes()    # zero bits to the byte
+        out.append(make_annexb_nal(nal.nal_ref_idc, nal.nal_unit_type, rbsp))
+    return b"".join(out)
+
+
+def fmo_stream(width: int, height: int, seed: int = REST_SEED):
+    """A two-slice-group stream built with the port's code, as the tests
+    build theirs (tests/test_torch_decoder_pyparse.py): PPS map type 0
+    with one MB row a run (groups of alternating rows), an IDR whose
+    rows are the port's one-row I16 bands (a band has no top neighbour,
+    the availability of interleaved groups) with deblocking off, then a
+    P picture whose two group slices are all mb_skip_run. Returns the
+    IDR's bytes, the whole stream and the per-row band reconstruction."""
+    import torch
+    from openh264_tpu_torch.bitstream import (BitWriter, NAL_IDR, NAL_PPS,
+                                              NAL_SLICE, NAL_SPS,
+                                              make_annexb_nal)
+    from openh264_tpu_torch.encoder import core_torch
+    from openh264_tpu_torch.encoder.config import EncoderConfig
+    from openh264_tpu_torch.encoder.encoder import H264Encoder, _NcTracker
+    from openh264_tpu_torch.encoder.headers import (write_slice_header,
+                                                    write_sps)
+    from openh264_tpu_torch.tables import CHROMA_QP_TABLE
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 256, (height, width), np.uint8)
+    u = rng.integers(0, 256, (height // 2, width // 2), np.uint8)
+    v = rng.integers(0, 256, (height // 2, width // 2), np.uint8)
+    qp = 28
+    cfg = EncoderConfig(width=width, height=height, qp=qp)
+    enc = H264Encoder(cfg, device="cpu")
+    mb_w, mb_h = cfg.mb_width, cfg.mb_height
+    w = BitWriter()
+    w.ue(0)                     # pps_id
+    w.ue(0)                     # sps_id
+    w.flag(False)               # entropy_coding_mode (CAVLC)
+    w.flag(False)               # pic_order_present
+    w.ue(1)                     # num_slice_groups_minus1
+    w.ue(0)                     # slice_group_map_type 0
+    w.ue(mb_w - 1)              # run_length_minus1, group 0
+    w.ue(mb_w - 1)              # run_length_minus1, group 1
+    w.ue(0)                     # num_ref_idx_l0_active_minus1
+    w.ue(0)
+    w.flag(False)               # weighted_pred
+    w.u(2, 0)
+    w.se(cfg.pic_init_qp - 26)
+    w.se(0)
+    w.se(0)                     # chroma_qp_index_offset
+    w.flag(True)                # deblocking_filter_control_present
+    w.flag(False)
+    w.flag(False)
+    w.rbsp_trailing_bits()
+    bs = (make_annexb_nal(3, NAL_SPS, write_sps(cfg)) +
+          make_annexb_nal(3, NAL_PPS, w.get_bytes()))
+    rows = []
+    for r in range(mb_h):
+        out = core_torch.encode_i_frame(
+            *(torch.from_numpy(p[r * k:(r + 1) * k].copy())
+              for p, k in ((y, 16), (u, 8), (v, 8))),
+            qp, int(CHROMA_QP_TABLE[qp]), mb_w=mb_w, mb_h=1)
+        rows.append({k: a.numpy() for k, a in out.items()})
+    for grp in (0, 1):
+        w = BitWriter()
+        write_slice_header(w, cfg, 2, 0, grp * mb_w, qp, True, 0,
+                           disable_deblock=1)
+        for r in range(grp, mb_h, 2):
+            nc = _NcTracker(mb_w, 1)
+            for i in range(mb_w):
+                enc._write_i16_mb(w, rows[r], i, nc, p_slice=False)
+        w.rbsp_trailing_bits()
+        bs += make_annexb_nal(3, NAL_IDR, w.get_bytes())
+    idr = bs
+    for grp, n in ((0, (mb_h + 1) // 2 * mb_w), (1, mb_h // 2 * mb_w)):
+        w = BitWriter()
+        write_slice_header(w, cfg, 0, 1, grp * mb_w, qp, False, 0,
+                           disable_deblock=1)
+        w.ue(n)                 # mb_skip_run over the whole group
+        w.rbsp_trailing_bits()
+        bs += make_annexb_nal(2, NAL_SLICE, w.get_bytes())
+    recon = [np.concatenate([r[k] for r in rows], 0)
+             for k in ("recon_y", "recon_u", "recon_v")]
+    return idr, bs, recon
+
+
+def phase_parse_layer(dev, card, cabac, recon, rc_stream):
+    """Phase 9: the decoder's parse layer on the card. cabac: phase 7's
+    CABAC runs (name -> bytes per frame), recon: api_cabac's
+    reconstruction per frame (device planes), rc_stream: phase 4's
+    rc_4slice_2tid bytes per frame. The CPU decodes run in worker
+    processes while the card decodes. Returns the summary and the
+    deblock launches of the card's decodes."""
+    from openh264_tpu_torch.api import WelsCreateDecoder
+    from openh264_tpu_torch.decoder import H264Decoder
+    from openh264_tpu_torch.encoder import deblock_cuda
+    t0 = time.perf_counter()
+    inputs = {name: b"".join(bs) for name, bs in cabac.items()}
+    coded = {name: sum(1 for b in bs if b) for name, bs in cabac.items()}
+    inputs["scaling_idc2_offsets"] = rewrite_for_parse_layer(
+        b"".join(rc_stream[:DEC_CROSS]))
+    coded["scaling_idc2_offsets"] = DEC_CROSS
+    fmo_idr, inputs["fmo"], fmo_recon = fmo_stream(FMO_W, FMO_H)
+    coded["fmo"] = 2
+    print(f"parse layer: streams written in {time.perf_counter() - t0:.2f} "
+          f"s: { {k: len(v) for k, v in inputs.items()} } bytes")
+    cross = {name: (data if name in ("scaling_idc2_offsets", "fmo") else
+                    b"".join(cabac[name][:DEC_CROSS]))
+             for name, data in inputs.items()}
+    spawn = multiprocessing.get_context("spawn")
+    out, decoded, launches = {}, {}, 0
+    with ProcessPoolExecutor(len(cross), mp_context=spawn) as pool:
+        jobs = {name: pool.submit(cpu_decode, data)
+                for name, data in cross.items()}
+        for name, data in inputs.items():
+            size = (FMO_W, FMO_H) if name == "fmo" else (W720, H720)
+            frames, run = timed_decode(name, data, coded[name], dev, card,
+                                       size)
+            launches += run["deblock_launches"]
+            decoded[name] = frames
+            out[name] = run
+        # the port decodes its own CABAC to its encoder's pictures
+        want = [[p.cpu().numpy() for p in r] for r in recon["api_cabac"]]
+        if not same_frames(decoded["api_cabac"], want):
+            fail("parse layer api_cabac: frames differ from the encoder's "
+                 "reconstruction")
+        print(f"parse layer api_cabac: all {len(want)} frames equal the "
+              f"encoder's reconstruction")
+        api = WelsCreateDecoder(device=dev)
+        api.Initialize()
+        _state, api_frames = api.DecodeFrameNoDelay(inputs["api_cabac"])
+        api_frames += api.FlushFrame()[1]
+        if not same_frames(api_frames, decoded["api_cabac"]):
+            fail("parse layer: CWelsDecoder's frames of api_cabac differ "
+                 "from H264Decoder's")
+        print(f"parse layer api: CWelsDecoder gives H264Decoder's "
+              f"{len(api_frames)} frames of api_cabac")
+        if not same_frames(decoded["fmo"][:1], [fmo_recon]) or \
+                not same_frames(decoded["fmo"][1:], decoded["fmo"][:1]):
+            fail("parse layer fmo: the IDR is not the per-row "
+                 "reconstruction, or the skipped P picture not its copy")
+        print("parse layer fmo: the IDR equals the per-row reconstruction "
+              "and the skipped P picture copies it")
+        # the Python parser's seconds per MB, on the IDR alone
+        dec = H264Decoder(device=dev, stage_times=True)
+        n0 = deblock_cuda.launches
+        if len(dec.decode_annexb(fmo_idr)) != 1 or \
+                deblock_cuda.launches - n0 != 1:
+            fail("parse layer fmo: the IDR alone did not decode to one "
+                 "deblocked picture")
+        launches += 1
+        n_mb = (FMO_W // 16) * (FMO_H // 16)
+        out["fmo"]["python_parse_ms_per_mb"] = \
+            1e3 * dec.stage_seconds["parse"] / n_mb
+        print(f"parse layer fmo: the Python CAVLC parser took "
+              f"{out['fmo']['python_parse_ms_per_mb']:.3f} ms per MB over "
+              f"the IDR's {n_mb} I16x16 MBs on {card}")
+        for name, job in jobs.items():
+            frames, secs = job.result()
+            if len(frames) < 1 or \
+                    not same_frames(decoded[name][:len(frames)], frames):
+                fail(f"parse layer {name}: CUDA and CPU frames differ")
+            print(f"parse layer cross-check {name}: CPU decode of "
+                  f"{len(frames)} frames ({secs:.2f} s, {CPU_THREADS} torch "
+                  f"threads, beside the card's decodes) equals the CUDA "
+                  f"frames")
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1045,11 +1314,11 @@ def main():
           f"python {sys.version.split()[0]}")
 
     # nvcc and cc at once, one thread each
-    with ThreadPoolExecutor(3) as ex:
-        builds = list(ex.map(_build.build, ("deblock", "host_native",
-                                            "parse_cavlc")))
+    host_c = ("host_native", "parse_cavlc", "cabac_residual")
+    with ThreadPoolExecutor(1 + len(host_c)) as ex:
+        builds = list(ex.map(_build.build, ("deblock",) + host_c))
     print(f"build deblock: {builds[0][0]:.2f} s\n{builds[0][1].strip()}")
-    for name, (secs, log) in zip(("host_native", "parse_cavlc"), builds[1:]):
+    for name, (secs, log) in zip(host_c, builds[1:]):
         print(f"build {name} (host C, cc): {secs:.2f} s {log.strip()}")
 
     t0 = time.perf_counter()
@@ -1072,7 +1341,7 @@ def main():
     if host_launches == 0:
         fail("the host encoder path never launched the deblock kernel")
     t0 = time.perf_counter()
-    rest, rest_launches = phase_rest(dev, card)
+    rest, rest_launches, cabac, cabac_recon = phase_rest(dev, card)
     print(f"phase rest: {time.perf_counter() - t0:.1f} s")
     if rest_launches == 0:
         fail("the phase 7 paths never launched the deblock kernel")
@@ -1081,12 +1350,20 @@ def main():
     print(f"phase decoder: {time.perf_counter() - t0:.1f} s")
     if dec_launches == 0:
         fail("the decoder never launched the deblock kernel")
+    t0 = time.perf_counter()
+    parse_layer, parse_launches = phase_parse_layer(
+        dev, card, cabac, cabac_recon, streams["rc_4slice_2tid"])
+    parse_layer["seconds"] = time.perf_counter() - t0
+    print(f"phase decoder parse layer: {parse_layer['seconds']:.1f} s")
+    if parse_launches == 0:
+        fail("the decoder's parse layer never launched the deblock kernel")
     kern["launches"] = launches + host_launches + rest_launches + \
-        dec_launches
+        dec_launches + parse_launches
     kern["launches_by_phase"] = {"main path": launches,
                                  "host encoder": host_launches,
                                  "rest": rest_launches,
-                                 "decoder": dec_launches}
+                                 "decoder": dec_launches,
+                                 "decoder parse layer": parse_launches}
     print(f"main path summary: "
           f"{json.dumps({'card': card, 'configs': main_path})}")
     print(f"host encoder summary: "
@@ -1094,6 +1371,8 @@ def main():
     print(f"rest summary: {json.dumps({'card': card, 'configs': rest})}")
     print(f"decoder summary: "
           f"{json.dumps({'card': card, 'streams': decoder})}")
+    print(f"decoder parse layer summary: "
+          f"{json.dumps({'card': card, 'streams': parse_layer})}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kern]}))
     print(json.dumps({"ok": True, "device": {

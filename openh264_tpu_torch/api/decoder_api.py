@@ -3,9 +3,10 @@
 Port of openh264_tpu/api/decoder_api.py (CWelsDecoder,
 WelsCreateDecoder). The engine is the port's decoder.H264Decoder on
 `device` (default "cuda"; without a GPU the default raises when the
-decoder is initialised). A slice the engine does not take (CABAC, B,
-the 8x8 transform, FMO) raises NotImplementedError out of the decode
-calls instead of coming back as a bitstream error. Mirrors CWelsDecoder (codec/decoder/plus/src/welsDecoderExt.cpp):
+decoder is initialised), which takes I and P slices in CAVLC or CABAC,
+with FMO and 4x4 scaling lists. A slice it does not take (B, the 8x8
+transform) raises NotImplementedError out of the decode calls instead
+of coming back as a bitstream error. Mirrors CWelsDecoder (codec/decoder/plus/src/welsDecoderExt.cpp):
 Initialize :373, DecodeFrameNoDelay :695, DecodeFrame2 :918,
 FlushFrame, SetOption/GetOption, statistics. Incremental Annex-B
 input: callers feed one or more NALs per call; completed access units

@@ -5,9 +5,11 @@
  * bound with ctypes by openh264_tpu_torch/native.py
  * (parse_cavlc_slice_native). Nothing here runs on the card.
  *
- * The port has no Python parser behind it: decoder/slice_dec.py refuses
- * the slices outside the scope below (B slices, CABAC, the 8x8
- * transform, FMO) with NotImplementedError. The original note follows.
+ * decoder/slice_dec.py routes as the JAX package does: I and P CAVLC
+ * slices without FMO come here, FMO slices go to its per-MB Python
+ * parser, and the rest (B slices, the 8x8 transform) are refused with
+ * NotImplementedError; this parser never falls back to Python. The
+ * original note follows.
  *
  * Native CAVLC slice-data parser: bitstream -> FrameSymbols tensors.
  *

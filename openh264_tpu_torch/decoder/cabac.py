@@ -1,11 +1,14 @@
-"""CABAC context tables and state (H.264 §9.3.1).
+"""CABAC entropy decoding (H.264 §9.3): contexts, tables and engine.
 
-Copied from openh264_tpu/decoder/cabac.py, the encoder's share: the
-ctxIdx offsets, the residual-category tables and CabacContexts (the
-per-slice context initialisation from the m,n table). The context
-layout is the spec's ctxIdx space 0..459, which the reference uses too
-(decoder_context.h NEW_CTX_OFFSET_*). The arithmetic decoding engine
-(CabacEngine) is not copied: the port has no decoder yet.
+Copied from openh264_tpu/decoder/cabac.py: the ctxIdx offsets, the
+residual-category tables, CabacContexts (the per-slice context
+initialisation from the m,n table) and CabacEngine, the spec arithmetic
+decoder (§9.3.3.2) bit for bit. The context layout is the spec's ctxIdx
+space 0..459, which the reference uses too (decoder_context.h
+NEW_CTX_OFFSET_*). The host encoder's writer (encoder/cabac_enc.py)
+shares the contexts and tables; the decoder's slice parser
+(slice_dec_cabac.py) runs the engine, with the residual bins in host C
+(csrc/cabac_residual.c) over the same engine state.
 """
 
 from __future__ import annotations
@@ -70,6 +73,128 @@ LAST8x8_CTX = np.array([0] + [1] * 15 + [2] * 16 + [3] * 8 + [4] * 8 +
                        [5] * 4 + [6] * 4 + [7] * 4 + [8] * 4, dtype=np.int32)
 # mvd suffix bin -> relative ctx (bins 1..8 use +0,+1,+2,+3,+3,...)
 MVD_BIN_CTX = [0, 1, 2, 3, 3, 3, 3, 3]
+
+
+class CabacEngine:
+    """Spec arithmetic decoding engine (§9.3.3.2) over an RBSP buffer."""
+
+    __slots__ = ("data", "nbits", "pos", "range", "offset")
+
+    def __init__(self, data: bytes, bitpos: int):
+        self.data = data
+        self.nbits = 8 * len(data)
+        self.pos = bitpos
+        # cabac_alignment_one_bit: align to byte boundary
+        while self.pos & 7:
+            self.pos += 1
+        self.range = 510
+        self.offset = self._read_bits(9)
+
+    def _read_bits(self, n: int) -> int:
+        v = 0
+        data = self.data
+        pos = self.pos
+        for _ in range(n):
+            if pos < self.nbits:
+                v = (v << 1) | ((data[pos >> 3] >> (7 - (pos & 7))) & 1)
+            else:
+                v <<= 1  # past-the-end bits read as 0 (trailing)
+            pos += 1
+        self.pos = pos
+        return v
+
+    def decision(self, ctx, idx: int) -> int:
+        state = ctx.state[idx]
+        lps = int(RANGE_LPS[state, (self.range >> 6) & 3])
+        self.range -= lps
+        if self.offset >= self.range:
+            bit = 1 - ctx.mps[idx]
+            self.offset -= self.range
+            self.range = lps
+            if state == 0:
+                ctx.mps[idx] ^= 1
+            ctx.state[idx] = STATE_TRANS[state, 0]
+        else:
+            bit = ctx.mps[idx]
+            ctx.state[idx] = STATE_TRANS[state, 1]
+        # renormalize
+        while self.range < 256:
+            self.range <<= 1
+            self.offset = (self.offset << 1) | self._read_bits(1)
+        return int(bit)
+
+    def bypass(self) -> int:
+        self.offset = (self.offset << 1) | self._read_bits(1)
+        if self.offset >= self.range:
+            self.offset -= self.range
+            return 1
+        return 0
+
+    def terminate(self) -> int:
+        self.range -= 2
+        if self.offset >= self.range:
+            # Engine terminates. self.pos stays at the consumed-bit point;
+            # any following data (PCM samples, rbsp trailing) starts at the
+            # next byte boundary from here (parity:
+            # RestoreCabacDecEngineToBS, cabac_decoder.cpp:94).
+            return 1
+        while self.range < 256:
+            self.range <<= 1
+            self.offset = (self.offset << 1) | self._read_bits(1)
+        return 0
+
+    # composite decoders -------------------------------------------------
+    def unary(self, ctx, idx0: int, idx_rest: int, max_sym: int = 2**30) -> int:
+        if not self.decision(ctx, idx0):
+            return 0
+        v = 1
+        while v < max_sym and self.decision(ctx, idx_rest):
+            v += 1
+        return v
+
+    def exp_bypass(self, k: int) -> int:
+        """Exp-Golomb suffix of order k, bypass bins."""
+        v = 0
+        while self.bypass():
+            v += 1 << k
+            k += 1
+            if k > 16:
+                raise ValueError("runaway exp-golomb in CABAC")
+        for i in range(k - 1, -1, -1):
+            v += self.bypass() << i
+        return v
+
+    def ueg_mv(self, ctx, base: int) -> int:
+        """UEG3 suffix for |mvd|-1 after the first bin (caller decoded it)."""
+        if not self.decision(ctx, base + MVD_BIN_CTX[0]):
+            return 0
+        v = 0
+        cnt = 1
+        while True:
+            bit = self.decision(ctx, base + MVD_BIN_CTX[min(cnt, 7)])
+            v += 1
+            cnt += 1
+            if bit == 0 or cnt == 8:
+                break
+        if bit != 0:
+            v += self.exp_bypass(3) + 1
+        return v
+
+    def ueg_level(self, ctx, idx: int) -> int:
+        """UEG0 for coeff_abs_level_minus1 - 1 (after the >1 bin)."""
+        if not self.decision(ctx, idx):
+            return 0
+        v = 0
+        cnt = 1
+        while True:
+            bit = self.decision(ctx, idx)
+            v += 1
+            cnt += 1
+            if bit == 0 or cnt == 13:
+                break
+        if bit != 0:
+            v += self.exp_bypass(0) + 1
+        return v
 
 
 class CabacContexts:

@@ -4,7 +4,9 @@ Port of openh264_tpu/decoder/decoder.py, which mirrors the reference's
 decode entry flow (welsDecoderExt.cpp DecodeFrameNoDelay → WelsDecodeBs
 → ConstructAccessUnit, SURVEY.md §3.3): Annex-B in, YUV420 frames out.
 
-Per picture: the slices are parsed on the host in C (slice_dec.py);
+Per picture: the slices are parsed on the host: CAVLC slices in C, or,
+with FMO, by the per-MB Python parser (slice_dec.py); CABAC slices per
+bin in Python with their residual bins in C (slice_dec_cabac.py);
 inter MBs are predicted and get their residual on the decoder's device
 and intra MBs run in host C (recon_batch.py); the frame is deblocked by
 the port's Hopper kernel on CUDA, or its plain version on the CPU
@@ -14,12 +16,12 @@ after the deblock (ec.py). A concealed picture's device planes are
 refreshed from the concealed host planes before the picture enters the
 DPB, where every later P picture reads them.
 
-Scope: Constrained Baseline streams and the like — CAVLC I and P
-slices, one or several per picture, IPCM, LTR / MMCO / ref-list
-modification, explicit P weights, every deblocking_filter_idc with its
-offsets, both chroma QP offsets, error concealment. CABAC, B slices,
-the 8x8 transform, FMO and scaling lists raise NotImplementedError out
-of decode_annexb / feed_annexb / flush; they are never concealed.
+Scope: I and P slices, CAVLC or CABAC, one or several per picture,
+FMO (slice group map types 0-6), 4x4 scaling lists, IPCM, LTR / MMCO /
+ref-list modification, explicit P weights, every deblocking_filter_idc
+with its offsets, both chroma QP offsets, error concealment. B slices
+and the 8x8 transform raise NotImplementedError out of decode_annexb /
+feed_annexb / flush; they are never concealed.
 """
 
 from __future__ import annotations
@@ -37,10 +39,12 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..encoder.deblock_host import deblock_frame
 from .dpb import DPB, Picture, PocContext
 from .ec import ERROR_CON_DISABLE, ERROR_CON_SLICE_COPY, implement_error_con
+from .fmo import build_mb_to_slice_group, next_mb_lut
 from .framedata import FrameSymbols
 from .params import parse_pps, parse_sps
 from .recon_batch import recon_frame_batch
 from .slice_dec import SliceDecodeContext, decode_slice_data_cavlc
+from .slice_dec_cabac import decode_slice_data_cabac
 from .slicehdr import parse_slice_header, P_SLICE, B_SLICE
 from .wpred import build_slice_wp
 
@@ -289,6 +293,13 @@ class H264Decoder:
         ref_pics: dict[int, Picture] = {}
         fs.wp_by_slice = []
         last_l0 = None      # last slice's L0 for EC MV-copy modes
+        fmo_next = None
+        if sh0.pps.num_slice_groups > 1:
+            # FMO: MBs iterate within their slice group (fmo.cpp
+            # FmoNextMb); the map may depend on the per-picture
+            # slice_group_change_cycle (map types 3-5)
+            fmo_next = next_mb_lut(build_mb_to_slice_group(
+                sh0.pps, sps, sh0.slice_group_change_cycle))
         for si, (nal, sh, br) in enumerate(slices):
             l0 = i0 = []
             if sh.slice_type == P_SLICE:
@@ -300,9 +311,13 @@ class H264Decoder:
                         ref_pics[p.pic_id] = p
                 last_l0 = l0
             fs.wp_by_slice.append(build_slice_wp(sh, i0, [], cur_poc=poc))
-            ctx = SliceDecodeContext(fs, sh, si, ref_list0=l0, poc=poc)
+            ctx = SliceDecodeContext(fs, sh, si, ref_list0=l0,
+                                     fmo_next=fmo_next)
             try:
-                decode_slice_data_cavlc(br, ctx)
+                if sh.pps.entropy_coding_mode:
+                    decode_slice_data_cabac(nal.rbsp, sh.header_bits, ctx)
+                else:
+                    decode_slice_data_cavlc(br, ctx)
             except NotImplementedError:
                 raise               # out of scope: never concealed
             except Exception as e:

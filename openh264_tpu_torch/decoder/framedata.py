@@ -15,7 +15,10 @@ Block index conventions:
 - chroma blocks raster within the 8x8 plane: blk = 2*by + bx.
 
 Copied from openh264_tpu/decoder/framedata.py (FrameSymbols and the MB
-type constants); ZSCAN_TO_RASTER comes from the port's tables.
+type constants); ZSCAN_TO_RASTER comes from the port's tables. The CABAC
+parser's neighbour grids (cbf_dc, gmvd, gdirect), which the JAX parser
+attaches to the object when it first needs them, are declared fields
+here.
 """
 
 from __future__ import annotations
@@ -71,6 +74,13 @@ class FrameSymbols:
         self.coeffs_l = np.zeros((n, 16, 16), dtype=np.int32)
         self.coeffs_c = np.zeros((n, 2, 4, 16), dtype=np.int32)
         self.coeffs8 = None  # lazily allocated [n, 4, 64] for 8x8 transform MBs
+        # CABAC neighbour state, allocated by the CABAC slice parser
+        # (slice_dec_cabac.ensure_cabac_state): per MB the coded_block_flag
+        # bits of I16 DC, Cb DC, Cr DC (bits 0..2); per list and 4x4 block
+        # the mvd; per 4x4 block the direct / skip flag
+        self.cbf_dc = None   # [n] int32
+        self.gmvd = None     # [2, mb_h*4, mb_w*4, 2] int32
+        self.gdirect = None  # [mb_h*4, mb_w*4] int8
         # IPCM raw samples
         self.ipcm = {}  # mb_idx -> (y[16,16], u[8,8], v[8,8])
         # non-zero count per luma 4x4 block (global grid) for nC/deblock

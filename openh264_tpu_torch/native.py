@@ -1,15 +1,16 @@
 """Host C of the host encoder and the decoder, bound with ctypes: the
 I-frame intra mode decision and encode (`enc_intra_frame_native`), the
 token bit packer (`bitpack`), the decoder's CAVLC slice parser
-(`parse_cavlc_slice_native`) and its intra reconstruction
+(`parse_cavlc_slice_native`), its CABAC residual-block bins
+(`cabac_residual_lib`) and its intra reconstruction
 (`recon_intra_mbs_native`).
 
 Port of the functions of openh264_tpu/native/__init__.py that these
-paths run; the C is csrc/host_native.c and csrc/parse_cavlc.c, built
-with the host compiler by _build.py at first use. Unlike the JAX
-package, which falls back to numpy, to I16-only intra or to its Python
-parser when its C does not build, this module has no fallback: a failed
-build raises.
+paths run; the C is csrc/host_native.c, csrc/parse_cavlc.c and
+csrc/cabac_residual.c, built with the host compiler by _build.py at
+first use. Unlike the JAX package, which falls back to numpy, to
+I16-only intra, to its Python parser or to Python CABAC bins when its C
+does not build, this module has no fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -42,6 +43,20 @@ def _parse_lib() -> ctypes.CDLL:
     lib = _build.load("parse_cavlc")
     lib.parse_cavlc_slice.restype = ctypes.c_int
     lib.parse_cavlc_slice.argtypes = [ctypes.c_void_p] * 3
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def cabac_residual_lib() -> ctypes.CDLL:
+    """csrc/cabac_residual.c: `cabac_residual(data, nbits, st, cstate,
+    cmps, range_lps, state_trans, params, sig_out)` decodes one residual
+    block's bins over the Python engine's state (st: pos, range, offset)
+    and context arrays, and returns its coefficient count (-1 on a
+    runaway exp-Golomb code)."""
+    lib = _build.load("cabac_residual")
+    lib.cabac_residual.restype = ctypes.c_int
+    lib.cabac_residual.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + \
+        [ctypes.c_void_p] * 7
     return lib
 
 
@@ -137,18 +152,20 @@ def _cavlc_tables() -> dict:
 
 def parse_cavlc_slice_native(br, ctx) -> int:
     """Parses one I or P CAVLC slice's data (no 8x8 transform, no FMO:
-    the caller refuses those) from br's bit position into ctx.fs, and
-    returns the index one past its last MB. Raises EOFError on a
-    bitstream overrun and ValueError on an invalid code, with br.pos and
-    the MBs parsed so far left as the C left them (the decoder conceals
-    the rest)."""
+    the caller routes those elsewhere or refuses them) from br's bit
+    position into ctx.fs, and returns the index one past its last MB.
+    Raises EOFError on a bitstream overrun and ValueError on an invalid
+    code, with br.pos and the MBs parsed so far left as the C left them
+    (the decoder conceals the rest). A slice outside that scope is a
+    caller's fault, NotImplementedError, which the decoder never
+    conceals."""
     from .decoder.mvpred import ensure_motion_grids
     from .decoder.slicehdr import I_SLICE, P_SLICE
     sh, fs = ctx.sh, ctx.fs
     if sh.slice_type not in (I_SLICE, P_SLICE) or \
             sh.pps.transform_8x8_mode or sh.pps.num_slice_groups > 1:
-        raise ValueError("parse_cavlc_slice_native: I/P slices without "
-                         "the 8x8 transform or FMO only")
+        raise NotImplementedError("parse_cavlc_slice_native: I/P slices "
+                                  "without the 8x8 transform or FMO only")
     ensure_motion_grids(fs)
     t = _cavlc_tables()
     n_mb = fs.n_mb

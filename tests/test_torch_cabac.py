@@ -6,8 +6,9 @@ device="cpu", writing the JAX encoder's bytes and keeping its DPB in
 each of the paths CABAC takes: one slice (IPPP with an IDR interval,
 intra-in-P), fixed slices, rate control with adaptive quant (per-MB
 delta QP), and a state carried from one encoder into another. The
-Main-profile SPS, the refusal of size-limited slicing, and the JAX
-decoder reading the port's CABAC stream back are checked too.
+Main-profile SPS, the refusal of size-limited slicing, the port's and the
+JAX decoding engines reading the seeded bins back, and the JAX decoder
+reading the port's CABAC stream back are checked too.
 """
 
 import numpy as np
@@ -95,24 +96,31 @@ def _run_engine(enc_mod, cabac_mod, writer, ops, qp):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_engine_bins_equal_and_decode(seed):
-    """Both engines write the same bytes for the same bins, and the JAX
-    decoding engine reads the port's decisions and bypass bins back."""
+    """Both engines write the same bytes for the same bins, and both
+    decoding engines, the JAX one and the port's, read the port's
+    decisions, bypass bins, terminations and composite binarisations
+    back, ending at the same bit position."""
     ops = _bins(seed)
     a, ca = _run_engine(jcabac_enc, jcabac, JWriter, ops, 20 + seed)
     b, cb = _run_engine(tcabac_enc, tcabac, TWriter, ops, 20 + seed)
     assert a == b and len(b) > 100
     np.testing.assert_array_equal(ca.state, cb.state)
-    dec = jcabac.CabacEngine(b, 8)
-    ctx = jcabac.CabacContexts(False, 0, 20 + seed)
-    for op in ops:
-        if op[0] == "decision":
-            assert dec.decision(ctx, op[1]) == op[2]
-        elif op[0] == "bypass":
-            assert dec.bypass() == op[1]
-        elif op[0] == "terminate":
-            assert dec.terminate() == op[1]
-        else:
-            assert getattr(dec, op[0])(ctx, op[1]) == op[2]
+    ends = []
+    for mod in (jcabac, tcabac):
+        dec = mod.CabacEngine(b, 8)
+        ctx = mod.CabacContexts(False, 0, 20 + seed)
+        for op in ops:
+            if op[0] == "decision":
+                assert dec.decision(ctx, op[1]) == op[2]
+            elif op[0] == "bypass":
+                assert dec.bypass() == op[1]
+            elif op[0] == "terminate":
+                assert dec.terminate() == op[1]
+            else:
+                assert getattr(dec, op[0])(ctx, op[1]) == op[2]
+        ends.append((dec.pos, dec.range, dec.offset, ctx.state.tolist(),
+                     ctx.mps.tolist()))
+    assert ends[0] == ends[1]
 
 
 def _pair(kw, frames, calls=None):

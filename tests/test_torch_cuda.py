@@ -2,8 +2,9 @@
 equality with the plain PyTorch versions on a GPU (with per-MB alpha /
 beta offsets and separate Cb / Cr QPs too); the host encoder and the API
 (CAVLC and CABAC), threaded simulcast, GOP parallelism, the processing
-functions and the decoder on a GPU against the same on the CPU, and the
-host C build on the GPU's machine.
+functions and the decoder (CAVLC and CABAC, deblock idc 2, offsets,
+scaling lists) on a GPU against the same on the CPU, and the host C
+build on the GPU's machine.
 
 This file imports nothing of JAX, so the card's tests also run on a
 machine without it:
@@ -451,6 +452,46 @@ def test_cuda_decoder_matches_cpu(cut, ec_mode):
     got = H264Decoder(device="cuda", ec_mode=ec_mode).decode_annexb(bs)
     assert dc.launches - n0 == 5
     assert len(got) == len(want) == (4 if cut else 5)
+    for g, w in zip(got, want):
+        for c in "yuv":
+            assert np.array_equal(getattr(g, c), getattr(w, c))
+
+
+def _decoder_input_stream(kind):
+    """Streams whose decode reaches the kernel's decoder-only inputs or
+    the decoder's parse layer: deblock idc 2 with 3 slices, a chroma QP
+    offset, per-slice alpha/beta offsets (test_torch_streams.STREAMS),
+    CABAC from the port's encoder, and the idc-2 stream with sent 4x4
+    scaling lists."""
+    from test_torch_streams import _stream, scaling_lists, with_pps
+    if kind == "cabac":
+        from openh264_tpu_torch.encoder.config import EncoderConfig
+        from openh264_tpu_torch.encoder.encoder import H264Encoder
+        enc = H264Encoder(EncoderConfig(width=HW, height=HH, qp=30,
+                                        num_slices=2, entropy_cabac=True),
+                          device="cpu")
+        return b"".join(enc.encode_frame(*f) for f in _host_frames(3, seed=8))
+    if kind == "scaling_lists":
+        return with_pps(_stream("idc2_slices3"), scaling=True,
+                        scaling_lists=scaling_lists(3))
+    return _stream(kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["idc2_slices3", "chroma_offset", "offsets",
+                                  "cabac", "scaling_lists"])
+def test_cuda_decoder_inputs_match_cpu(kind):
+    """Deblock idc 2, a chroma QP offset, non-zero slice alpha/beta
+    offsets, CABAC and scaling lists: H264Decoder on the card gives the
+    CPU decode's frames, one deblock launch per picture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from openh264_tpu_torch.decoder import H264Decoder
+    bs = _decoder_input_stream(kind)
+    want = H264Decoder(device="cpu").decode_annexb(bs)
+    n0 = dc.launches
+    got = H264Decoder(device="cuda").decode_annexb(bs)
+    assert dc.launches - n0 == len(want) >= 3
     for g, w in zip(got, want):
         for c in "yuv":
             assert np.array_equal(getattr(g, c), getattr(w, c))

@@ -28,6 +28,8 @@ from openh264_tpu_torch.decoder.decoder import write_yuv
 from openh264_tpu_torch.encoder.config import EncoderConfig
 from openh264_tpu_torch.encoder.encoder import H264Encoder
 
+from test_torch_decoder import _refused_stream
+
 W, H = 96, 64
 
 
@@ -170,11 +172,9 @@ def test_api_matches_jax():
 
 
 def test_api_lets_not_implemented_through():
-    """A CABAC stream raises out of the API's decode call; it is not
-    reported as a bitstream error."""
-    enc = H264Encoder(EncoderConfig(width=W, height=H, qp=28,
-                                    entropy_cabac=True), device="cpu")
-    bs = b"".join(enc.encode_frame(*f) for f in _frames(2))
+    """A CABAC stream with a B slice appended raises out of the API's
+    decode calls; it is not reported as a bitstream error."""
+    bs = _refused_stream("cabac_b_slice")
     dec = WelsCreateDecoder(device="cpu")
     dec.Initialize()
     with pytest.raises(NotImplementedError):

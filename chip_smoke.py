@@ -13,7 +13,9 @@ Phases, each fatal on failure:
   3. each kernel against its plain PyTorch version on the card, exact
      equality, on many grids and in 50 repeats, and both timed with
      CUDA events; the deblock kernel also with the decoder's inputs
-     (per-MB alpha/beta offsets, separate Cb and Cr QPs), timed too;
+     (per-MB alpha/beta offsets, separate Cb and Cr QPs), timed too,
+     and with deblock_host.deblock_inputs of a 720p B FrameSymbols with
+     8x8-transform MBs (their interior luma edges zeroed);
   4. the main path: DeviceSessionEncoder(device="cuda").encode_stream on
      16 frames of synthetic 720p content in two configs, 2 timed runs
      each (frames/s), the kernels' launch counts over exactly each run,
@@ -24,9 +26,10 @@ Phases, each fatal on failure:
      "cuda") on 720p content in four configs (the API with I4x4 in host
      C; 4 fixed slices in band mode; screen content with the scroll
      candidate, adaptive quant, GOM rate control and LTR recovery;
-     size-limited slices), 2 timed runs of 8 frames each (frames/s), the
-     deblock kernel's launches against the deblocked frames of each run,
-     the CUDA stream against the CPU stream over 3 frames, and a
+     size-limited slices), 2 timed runs of 8 frames each (frames/s; one
+     of the size-limited config, whose IDR takes ~50 s), the deblock
+     kernel's launches against the deblocked frames of each run, the
+     first run's first 3 frames against a CPU encode of them, and a
      torch.profiler device-busy share over 2 more P frames;
   7. the rest of the encoder side at 720p: CABAC through the API and
      through H264Encoder with 4 fixed slices and bitrate RC (frames/s,
@@ -63,7 +66,17 @@ Phases, each fatal on failure:
      off, then a P picture of skipped MBs), which the per-MB Python
      parser decodes (its seconds per MB), equal to the per-row
      reconstruction; every one of these equal to a CPU decode in a
-     worker process that ran beside the card's decodes.
+     worker process that ran beside the card's decodes;
+ 10. B pictures and the 8x8 transform: b_t8_cabac (720p: api_cabac's
+     IDR and P, then under a transform_8x8_mode PPS with 8x8 scaling
+     lists and implicit weights a P, an I and two B pictures of seeded
+     random CABAC bins steered by the port's parser on the host) and
+     b_t8_cavlc (176x144: B pictures of the tests' hand MB writer with
+     explicit weights, through the Python CAVLC parser), each decoded
+     once on the card (frames/s, seconds per stage, one deblock launch
+     per picture, the MB types reached, which must include B, I8x8 and
+     8x8-transform inter MBs, and the recon seconds of pictures with
+     I8x8 MBs), equal to a CPU decode in a worker process beside.
 It prints a `kernels` JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a GPU, or without the package beside it, it exits non-zero and
@@ -90,7 +103,8 @@ W720, H720 = 1280, 720
 N_FRAMES = 16          # per main-path run: 1 IDR + 15 P
 REPEATS = 2            # timed runs of each main-path config
 HOST_FRAMES = 8        # per host-encoder run: 1 IDR + 7 P
-HOST_REPEATS = 2       # timed runs of each host-encoder config
+HOST_REPEATS = 2       # timed runs of each host-encoder config but
+SIZELIMITED_REPEATS = 1  # host_sizelimited's (its IDR alone takes ~50 s)
 SCROLL_ROWS = 8        # screen content scrolls this many rows a frame
 REST_FRAMES = 4        # phase 7 runs: 1 IDR + 3 P
 REST_CROSS = 2         # phase 7 frames encoded on both CUDA and the CPU
@@ -98,6 +112,8 @@ REST_SEED = 2024       # phase 7 content
 GOP_FRAMES = 8         # phase 7 GOP parallelism: 2 closed GOPs of 4
 DEC_CROSS = 2          # phase 8, 9 frames decoded on both CUDA and the CPU
 FMO_W, FMO_H = 176, 144  # phase 9 FMO stream (the Python parser's)
+B_W, B_H = 176, 144      # phase 10 CAVLC B stream (the Python parser's)
+B_SEED = 2027            # phase 10 stream writers
 CPU_THREADS = 2        # torch threads of each CPU cross-check process
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, used for 32-bit integer work
@@ -238,6 +254,50 @@ def idc2_inputs(dev):
     return planes + [BSV, BSH, qp, cqp]
 
 
+def t8_inputs(dev):
+    """The decoder's deblock inputs at 720p (80x45 MBs) for 8x8-transform
+    MBs: deblock_host.deblock_inputs of a seeded B FrameSymbols (I16x16,
+    I8x8, B16x16, B8x8, B_Skip and B_Direct MBs, motion and refs in both
+    lists, the direct interior-bS modes, the 8x8 transform on about half
+    the MBs, 5 slices with their own alpha/beta offsets, Cb/Cr QP
+    offsets 2 and -3), whose interior luma edges of 8x8-transform MBs it
+    zeroes; blocky planes. Returns (planes + [BSV, BSH, qp, cqp],
+    (alpha, beta, cqp), the number of 8x8-transform MBs)."""
+    import torch
+    from openh264_tpu_torch.decoder.framedata import FrameSymbols
+    from openh264_tpu_torch.encoder.deblock_host import deblock_inputs as di
+    rng = np.random.default_rng(11)
+    mbw, mbh = 80, 45
+    n = mbw * mbh
+    fs = FrameSymbols(mbw, mbh)
+    fs.mb_type[:] = rng.choice([1, 3, 9, 12, 13, 14], n)
+    intra = fs.mb_type < 4
+    fs.slice_id[:] = np.repeat(np.arange(5), n // 5)
+    offs = rng.integers(-6, 7, (5, 2)) * 2
+    fs.alpha_offset[:] = offs[fs.slice_id, 0]
+    fs.beta_offset[:] = offs[fs.slice_id, 1]
+    fs.qp[:] = rng.integers(18, 42, n)
+    pm = rng.integers(0, 3, (n, 4))
+    fs.pred_mode[:] = np.where(intra[:, None], -1, pm)
+    for lx in range(2):
+        use = ~intra[:, None] & ((pm == lx) | (pm == 2))
+        ref = rng.integers(0, 2, (n, 4))
+        fs.refidx[:, lx] = np.where(use, ref, -1)
+        fs.ref_pic[:, lx] = np.where(use, ref * 4 + 1, -1)
+        fs.mv[:, lx] = rng.integers(-7, 8, (n, 16, 2))
+    fs.ibs_mode[:] = np.where(fs.mb_type == 13, 2, np.where(
+        fs.mb_type == 14, rng.integers(0, 2, n), 0))
+    fs.nzc_l[:] = rng.integers(0, 3, fs.nzc_l.shape) * \
+        (rng.random(fs.nzc_l.shape) < 0.4)
+    fs.transform8[:] = (rng.random(n) < 0.5) | (fs.mb_type == 3)
+    fs.chroma_qp_offsets = (2, -3)
+    BSV, BSH, qp, cqp, ao, bo = (torch.from_numpy(a).to(dev)
+                                 for a in di(fs))
+    planes = deblock_inputs(mbw, mbh, 12, dev, blocky=True)[:3]
+    return (planes + [BSV, BSH, qp, cqp], (ao, bo, cqp),
+            int(fs.transform8.sum()))
+
+
 def offset_inputs(mbw, mbh, seed, dev):
     """The decoder's extra deblock inputs: per-MB alpha and beta offsets
     (-12..12, even, as slice headers send them) and Cb / Cr QPs
@@ -258,7 +318,8 @@ def phase_kernels(dev):
     SMs, so blocks take several rows by ticket) and 1080p's (120,68);
     one deblock-idc-2 frame (band-top MB rows with zeroed bS); the
     decoder's inputs (random non-zero alpha/beta offsets per MB, unequal
-    Cb and Cr QPs) on (6,5) and, in 10 repeats, at 80x45; then 50
+    Cb and Cr QPs) on (6,5) and, in 10 repeats, at 80x45; the decoder's
+    inputs for 8x8-transform MBs at 80x45 (t8_inputs); then 50
     repeats at 80x45, where a fault in the progress counters would show
     now and then. The kernel filters its planes in place, so it
     always gets clones."""
@@ -296,6 +357,9 @@ def phase_kernels(dev):
     check(args, mbw, mbh, "80x45 idc2 zero rows")
     check(deblock_inputs(6, 5, 20, dev, True), 6, 5,
           "6x5 MBs offsets, Cb/Cr QPs", offset_inputs(6, 5, 20, dev))
+    t8_args, t8_offs, n_t8 = t8_inputs(dev)
+    check(t8_args, mbw, mbh, f"80x45 decoder inputs with {n_t8} "
+          f"8x8-transform MBs (interior luma edges zeroed)", t8_offs)
     offs = offset_inputs(mbw, mbh, 21, dev)
     for label, a, extra, n in (
             ("blocky", deblock_inputs(mbw, mbh, 6, dev, True), (), 50),
@@ -552,7 +616,9 @@ def host_encode(kind, kw, dev, frames, calls, recon=None):
 def phase_host_encoder(dev, card: str):
     """The host encoder path on 720p content in each of HOST_CONFIGS:
     timed runs whose deblock launches must equal their deblocked frames,
-    a profile of 2 more P frames, and CUDA against CPU over 3 frames.
+    a profile of 2 more P frames, and the first timed run's first 3
+    frames against a CPU encode of the same 3 frames (an encoder's
+    frame depends only on the frames before it).
     Returns the summary, the launches, the first timed run's bytes per
     frame of each config and api_cavlc's reconstruction per frame."""
     import torch
@@ -575,7 +641,8 @@ def phase_host_encoder(dev, card: str):
     for name, (kind, kw, src, calls) in HOST_CONFIGS.items():
         fr = content[src]
         runs = []
-        for rep in range(HOST_REPEATS):
+        for rep in range(SIZELIMITED_REPEATS if name == "host_sizelimited"
+                         else HOST_REPEATS):
             deblock_cuda.launches = 0
             t0 = time.perf_counter()
             bs, secs, encode = host_encode(
@@ -608,13 +675,13 @@ def phase_host_encoder(dev, card: str):
         prof = profile_frames(lambda: [encode(*f) for f in
                                        fr[HOST_FRAMES:HOST_FRAMES + 2]],
                               2, f"host {name}")
-        streams = {}
-        for d in (dev, "cpu"):
-            t0 = time.perf_counter()
-            streams[d] = host_encode(kind, kw, d, fr[:3], calls)[0]
-            print(f"host cross-check {name}: {d} encoded 3 frames in "
-                  f"{time.perf_counter() - t0:.2f} s, sizes "
-                  f"{[len(b) for b in streams[d]]}")
+        streams = {dev: first_runs[name][:3]}
+        t0 = time.perf_counter()
+        streams["cpu"] = host_encode(kind, kw, "cpu", fr[:3], calls)[0]
+        print(f"host cross-check {name}: cpu encoded 3 frames in "
+              f"{time.perf_counter() - t0:.2f} s, sizes "
+              f"{[len(b) for b in streams['cpu']]} (cuda "
+              f"{[len(b) for b in streams[dev]]})")
         if streams[dev] != streams["cpu"]:
             fail(f"host encoder {name}: CUDA and CPU streams differ")
         print(f"host cross-check {name}: CUDA and CPU Annex-B "
@@ -1295,6 +1362,148 @@ def phase_parse_layer(dev, card, cabac, recon, rc_stream):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: B pictures and the 8x8 transform
+# ---------------------------------------------------------------------------
+MB_NAMES = ("I4x4", "I16x16", "IPCM", "I8x8", "P16x16", "P16x8", "P8x16",
+            "P8x8", "P_Skip", "B16x16", "B16x8", "B8x16", "B8x8", "B_Skip",
+            "B_Direct")
+
+
+class DecodeProbe:
+    """While active, records per decoded picture its correctly decoded
+    MB types and 8x8-transform flags and the seconds of its recon (device
+    synchronized), and the seconds and MBs of the per-MB Python CAVLC
+    parser; restores the decoder's functions on exit."""
+
+    def __enter__(self):
+        import torch
+        import openh264_tpu_torch.decoder.decoder as dm
+        import openh264_tpu_torch.decoder.slice_dec as sd
+        self.pics, self.py_parse_s, self.py_parse_mbs = [], 0.0, 0
+        self._saved = ((dm, "recon_frame_batch", dm.recon_frame_batch),
+                       (sd, "decode_slice_mbs_cavlc",
+                        sd.decode_slice_mbs_cavlc))
+        recon, parse = self._saved[0][2], self._saved[1][2]
+
+        def timed_recon(fs, *a, **k):
+            t0 = time.perf_counter()
+            st = recon(fs, *a, **k)
+            torch.cuda.synchronize()
+            ok = fs.mb_correct
+            self.pics.append((fs.mb_type[ok].copy(), fs.transform8[ok].copy(),
+                              time.perf_counter() - t0))
+            return st
+
+        def timed_parse(br, ctx):
+            t0 = time.perf_counter()
+            end = parse(br, ctx)
+            self.py_parse_s += time.perf_counter() - t0
+            self.py_parse_mbs += end - ctx.sh.first_mb_in_slice
+            return end
+        dm.recon_frame_batch = timed_recon
+        sd.decode_slice_mbs_cavlc = timed_parse
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def histogram(self):
+        types = np.concatenate([t for t, _, _ in self.pics])
+        return {MB_NAMES[k]: int(c) for k, c in
+                zip(*np.unique(types, return_counts=True))}
+
+    def reached(self):
+        """(B MBs, I8x8 MBs, 8x8-transform inter MBs) reached."""
+        types = np.concatenate([t for t, _, _ in self.pics])
+        t8 = np.concatenate([f for _, f, _ in self.pics])
+        return (int((types >= 9).sum()), int((types == 3).sum()),
+                int((t8 & (types >= 4)).sum()))
+
+
+def phase_b_t8(dev, card, cabac):
+    """Phase 10: B pictures and the 8x8 transform on the card, on two
+    streams written with the tests' stream writers
+    (tests/test_torch_streams.py, which imports nothing of JAX):
+    b_t8_cabac, api_cabac's IDR and first P (phase 7) under a High SPS of
+    POC type 0, then under a second PPS (transform_8x8_mode, sent 4x4 and
+    8x8 scaling lists, implicit weights) a P, an I and two B pictures
+    (spatial, then temporal direct) of seeded random CABAC bins that the
+    port's parser steers on the host, 5 slices each, at 720p; and
+    b_t8_cavlc, CAVLC IDR/P pictures of the port's encoder and two B
+    pictures from the hand MB writer (every B MB kind, I8x8, inter MBs
+    with the 8x8 transform, explicit weights, scaling lists) at 176x144,
+    which the per-MB Python parser decodes. Each is decoded once on the
+    card (frames/s, seconds per stage, one deblock launch per picture,
+    the MB types reached, the recon seconds of pictures with I8x8 MBs,
+    whose intra MBs run in host Python) and must equal a CPU decode in a
+    worker process that runs beside. Returns the summary and the deblock
+    launches of the card's decodes."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_streams import b_stream, steered_cabac_stream
+    t0 = time.perf_counter()
+    inputs = {"b_t8_cavlc": b_stream(idc=1, scaling=True, w=B_W, h=B_H,
+                                     seed=B_SEED)[0]}
+    t_cavlc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inputs["b_t8_cabac"] = steered_cabac_stream(
+        b"".join(cabac["api_cabac"][:2]), idc=2, scaling=True, seed=B_SEED,
+        rows_per_slice=9)
+    t_cabac = time.perf_counter() - t0
+    print(f"b/8x8: streams written, b_t8_cavlc in {t_cavlc:.2f} s, "
+          f"b_t8_cabac (4 steered 720p pictures, host CPU) in "
+          f"{t_cabac:.2f} s: { {k: len(v) for k, v in inputs.items()} } "
+          f"bytes")
+    coded = {"b_t8_cavlc": 5, "b_t8_cabac": 6}
+    sizes = {"b_t8_cavlc": (B_W, B_H), "b_t8_cabac": (W720, H720)}
+    spawn = multiprocessing.get_context("spawn")
+    out, launches = {"stream_write_seconds": {"b_t8_cavlc": t_cavlc,
+                                              "b_t8_cabac": t_cabac}}, 0
+    decoded = {}
+    with ProcessPoolExecutor(len(inputs), mp_context=spawn) as pool:
+        jobs = {name: pool.submit(cpu_decode, data)
+                for name, data in inputs.items()}
+        for name, data in inputs.items():
+            with DecodeProbe() as probe:
+                frames, run = timed_decode(name, data, coded[name], dev,
+                                           card, sizes[name])
+            launches += run["deblock_launches"]
+            if run["deblock_launches"] != len(probe.pics):
+                fail(f"b/8x8 {name}: {run['deblock_launches']} deblock "
+                     f"launches for {len(probe.pics)} pictures")
+            n_b, n_i8, n_t8 = probe.reached()
+            run["mb_types"] = probe.histogram()
+            run["reached"] = {"B": n_b, "I8x8": n_i8, "t8_inter": n_t8}
+            print(f"b/8x8 {name}: correctly decoded MB types "
+                  f"{run['mb_types']}; 8x8-transform inter MBs {n_t8}")
+            if not (n_b and n_i8 and n_t8):
+                fail(f"b/8x8 {name}: no B MB, no I8x8 MB or no inter MB "
+                     f"with the 8x8 transform was reached")
+            i8 = [s for t, _, s in probe.pics if (t == 3).any()]
+            run["recon_ms_per_i8x8_picture"] = 1e3 * float(np.mean(i8))
+            print(f"b/8x8 {name}: recon of the {len(i8)} pictures with "
+                  f"I8x8 MBs (intra MBs in host Python, inter on the card) "
+                  f"{run['recon_ms_per_i8x8_picture']:.1f} ms each on "
+                  f"{card}")
+            if probe.py_parse_mbs:
+                run["python_parse_ms_per_mb"] = \
+                    1e3 * probe.py_parse_s / probe.py_parse_mbs
+                print(f"b/8x8 {name}: the Python CAVLC parser took "
+                      f"{run['python_parse_ms_per_mb']:.3f} ms per MB over "
+                      f"{probe.py_parse_mbs} MBs of B slices on {card}")
+            decoded[name] = frames
+            out[name] = run
+        for name, job in jobs.items():
+            frames, secs = job.result()
+            if not same_frames(decoded[name], frames):
+                fail(f"b/8x8 {name}: CUDA and CPU frames differ")
+            print(f"b/8x8 cross-check {name}: CPU decode of {len(frames)} "
+                  f"frames ({secs:.2f} s, {CPU_THREADS} torch threads, "
+                  f"beside the card's decodes) equals the CUDA frames")
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1357,13 +1566,20 @@ def main():
     print(f"phase decoder parse layer: {parse_layer['seconds']:.1f} s")
     if parse_launches == 0:
         fail("the decoder's parse layer never launched the deblock kernel")
+    t0 = time.perf_counter()
+    b_t8, b_launches = phase_b_t8(dev, card, cabac)
+    b_t8["seconds"] = time.perf_counter() - t0
+    print(f"phase decoder B / 8x8: {b_t8['seconds']:.1f} s")
+    if b_launches == 0:
+        fail("the decoder's B / 8x8 path never launched the deblock kernel")
     kern["launches"] = launches + host_launches + rest_launches + \
-        dec_launches + parse_launches
+        dec_launches + parse_launches + b_launches
     kern["launches_by_phase"] = {"main path": launches,
                                  "host encoder": host_launches,
                                  "rest": rest_launches,
                                  "decoder": dec_launches,
-                                 "decoder parse layer": parse_launches}
+                                 "decoder parse layer": parse_launches,
+                                 "decoder B / 8x8": b_launches}
     print(f"main path summary: "
           f"{json.dumps({'card': card, 'configs': main_path})}")
     print(f"host encoder summary: "
@@ -1373,6 +1589,8 @@ def main():
           f"{json.dumps({'card': card, 'streams': decoder})}")
     print(f"decoder parse layer summary: "
           f"{json.dumps({'card': card, 'streams': parse_layer})}")
+    print(f"decoder B / 8x8 summary: "
+          f"{json.dumps({'card': card, 'streams': b_t8})}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kern]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,14 @@ Port of openh264_tpu/decoder/decoder.py, which mirrors the reference's
 decode entry flow (welsDecoderExt.cpp DecodeFrameNoDelay → WelsDecodeBs
 → ConstructAccessUnit, SURVEY.md §3.3): Annex-B in, YUV420 frames out.
 
-Per picture: the slices are parsed on the host: CAVLC slices in C, or,
-with FMO, by the per-MB Python parser (slice_dec.py); CABAC slices per
-bin in Python with their residual bins in C (slice_dec_cabac.py);
-inter MBs are predicted and get their residual on the decoder's device
-and intra MBs run in host C (recon_batch.py); the frame is deblocked by
+Per picture: the slices are parsed on the host: CAVLC I/P slices in C,
+or, B slices, FMO and the 8x8 transform, by the per-MB Python parser
+(slice_dec.py); CABAC slices per bin in Python with their residual bins
+in C (slice_dec_cabac.py); B direct motion is derived on the host
+(direct.py); inter MBs are predicted (L0, L1, bi, weighted) and get
+their 4x4 or 8x8 residual on the decoder's device and intra MBs run in
+host C, or in host Python in a picture with I8x8 MBs (recon_batch.py);
+the frame is deblocked by
 the port's Hopper kernel on CUDA, or its plain version on the CPU
 (encoder/deblock_host.py); the planes come to the host once, for
 output and for error concealment, which fills the MBs of broken slices
@@ -16,12 +19,15 @@ after the deblock (ec.py). A concealed picture's device planes are
 refreshed from the concealed host planes before the picture enters the
 DPB, where every later P picture reads them.
 
-Scope: I and P slices, CAVLC or CABAC, one or several per picture,
-FMO (slice group map types 0-6), 4x4 scaling lists, IPCM, LTR / MMCO /
-ref-list modification, explicit P weights, every deblocking_filter_idc
-with its offsets, both chroma QP offsets, error concealment. B slices
-and the 8x8 transform raise NotImplementedError out of decode_annexb /
-feed_annexb / flush; they are never concealed.
+Scope: I, P and B slices, CAVLC or CABAC, one or several per picture,
+spatial and temporal direct, explicit and implicit weights
+(weighted_bipred_idc 0-2), the 8x8 transform (I8x8, 8x8 inter residual),
+FMO (slice group map types 0-6), 4x4 and 8x8 scaling lists, IPCM, LTR /
+MMCO / ref-list modification of both lists, POC-order output of streams
+with B slices, every deblocking_filter_idc with its offsets, both
+chroma QP offsets, error concealment. SP and SI slices raise
+NotImplementedError out of decode_annexb / feed_annexb / flush; they
+are never concealed.
 """
 
 from __future__ import annotations
@@ -301,18 +307,25 @@ class H264Decoder:
             fmo_next = next_mb_lut(build_mb_to_slice_group(
                 sh0.pps, sps, sh0.slice_group_change_cycle))
         for si, (nal, sh, br) in enumerate(slices):
-            l0 = i0 = []
-            if sh.slice_type == P_SLICE:
-                i0 = self.dpb.build_list_p(sh.frame_num)
-                l0 = self.dpb.reorder_list(i0, sh.ref_pic_list_modification[0],
-                                           sh.frame_num, sh.num_ref_idx_l0_active)
-                for p in l0:
+            l0 = l1 = i0 = i1 = []
+            if sh.slice_type in (P_SLICE, B_SLICE):
+                mods = sh.ref_pic_list_modification
+                if sh.slice_type == P_SLICE:
+                    i0 = self.dpb.build_list_p(sh.frame_num)
+                else:
+                    i0, i1 = self.dpb.build_lists_b(poc, sh.frame_num)
+                l0 = self.dpb.reorder_list(i0, mods[0], sh.frame_num,
+                                           sh.num_ref_idx_l0_active)
+                if sh.slice_type == B_SLICE:
+                    l1 = self.dpb.reorder_list(i1, mods[1], sh.frame_num,
+                                               sh.num_ref_idx_l1_active)
+                for p in l0 + l1:
                     if p is not None:
                         ref_pics[p.pic_id] = p
                 last_l0 = l0
-            fs.wp_by_slice.append(build_slice_wp(sh, i0, [], cur_poc=poc))
-            ctx = SliceDecodeContext(fs, sh, si, ref_list0=l0,
-                                     fmo_next=fmo_next)
+            fs.wp_by_slice.append(build_slice_wp(sh, i0, i1, cur_poc=poc))
+            ctx = SliceDecodeContext(fs, sh, si, ref_list0=l0, ref_list1=l1,
+                                     poc=poc, fmo_next=fmo_next)
             try:
                 if sh.pps.entropy_coding_mode:
                     decode_slice_data_cabac(nal.rbsp, sh.header_bits, ctx)
@@ -399,8 +412,8 @@ class H264Decoder:
     @staticmethod
     def _attach_col_motion(pic: Picture, fs: FrameSymbols) -> None:
         """Save the picture's motion field, which B slices' temporal and
-        spatial direct read from their colocated picture (kept for the B
-        slices of a later slice of the port; decoder.py:345-375)."""
+        spatial direct read from their colocated picture
+        (decoder.py:345-375)."""
         from .mvpred import ensure_motion_grids
         from .framedata import INTRA_CLASSES, MB_P16x16, MB_PSKIP, MB_B16x16
         ensure_motion_grids(fs)

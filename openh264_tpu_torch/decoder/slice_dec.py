@@ -1,22 +1,25 @@
 """Slice data parsing: per-MB syntax -> FrameSymbols tensors.
 
 The serial entropy phase of the decoder, on the host. Mirrors the
-behavior of the reference's WelsDecodeMbCavlc{I,P}Slice parse
+behavior of the reference's WelsDecodeMbCavlc{I,P,B}Slice parse
 (decode_slice.cpp:853-2610) but writes dense per-frame tensors instead
 of reconstructing inline; reconstruction happens batched afterwards
 (recon_batch.py).
 
-Port of openh264_tpu/decoder/slice_dec.py for I and P slices: the
-per-slice context with its neighbour lookups (nC, intra 4x4 mode
-prediction, MV prediction), the per-MB Python CAVLC parser and the
-routing of decode_slice_data_cavlc, which sends I and P slices to the
-host C parser (csrc/parse_cavlc.c through native.parse_cavlc_slice_native)
-and FMO slices, which that parser does not take, to the Python parser,
-as the JAX package does (native/__init__.py:189-203). The CABAC parser
-(slice_dec_cabac.py) shares the context and the per-MB helpers. B (and
-SP/SI) slices and the 8x8 transform are refused by check_scope with
-NotImplementedError, which the decoder lets through and never conceals;
-so the JAX parser's B-slice and transform8 branches are not carried.
+Port of openh264_tpu/decoder/slice_dec.py: the per-slice context with
+its neighbour lookups (nC, intra 4x4 / 8x8 mode prediction, MV
+prediction, the spatial-direct cache over decoder/direct.py), the
+per-MB Python CAVLC parser of I, P and B slices with the 8x8 transform
+(I8x8, the inter transform_size_8x8_flag, the 8x8 residual as four
+interleaved 4x4 CAVLC blocks) and direct prediction (apply_direct), and
+the routing of decode_slice_data_cavlc, which sends I and P slices
+without FMO or the 8x8 transform to the host C parser
+(csrc/parse_cavlc.c through native.parse_cavlc_slice_native) and every
+other slice (B, FMO, a PPS with transform_8x8_mode) to the Python
+parser, as the JAX package does (native/__init__.py:189-203). The CABAC
+parser (slice_dec_cabac.py) shares the context and the per-MB helpers.
+check_scope refuses SP and SI slices with NotImplementedError, which
+the decoder lets through and never conceals.
 """
 
 from __future__ import annotations
@@ -24,28 +27,28 @@ from __future__ import annotations
 import numpy as np
 
 from ..bitstream import BitReader
-from ..tables import CHROMA_QP_TABLE, ZIGZAG_4x4
+from ..tables import CHROMA_QP_TABLE, ZIGZAG_4x4, ZIGZAG_8x8
 from ..tables.cavlc import CBP_I16x16, CBP_INTER, CBP_INTRA
 from .cavlc import parse_residual_block
 from .dequant import DequantTables, hadamard2x2, luma_dc_dequant_ihadamard
-from .framedata import (FrameSymbols, MB_I4x4, MB_I16x16, MB_IPCM, MB_I8x8,
-                        MB_P16x16, MB_P16x8, MB_P8x16, MB_P8x8, MB_PSKIP,
-                        ZSCAN_TO_RASTER)
+from .direct import DirectContext
+from .framedata import (FrameSymbols, MB_BDIRECT, MB_BSKIP, MB_B16x16,
+                        MB_B16x8, MB_B8x16, MB_B8x8, MB_I4x4, MB_I16x16,
+                        MB_IPCM, MB_I8x8, MB_P16x16, MB_P16x8, MB_P8x16,
+                        MB_P8x8, MB_PSKIP, ZSCAN_TO_RASTER)
 from .mvpred import MvContext, ensure_motion_grids
-from .slicehdr import I_SLICE, P_SLICE, SliceHeader
+from .slicehdr import B_SLICE, I_SLICE, P_SLICE, SliceHeader
 
 # luma DC scan: zigzag over the 4x4 DC array
 _LUMA_DC_SCAN = ZIGZAG_4x4
-
-_LATER = "is decoded by the JAX package only; the port's decoder takes " \
-    "I and P slices without the 8x8 transform"
 
 
 class SliceDecodeContext:
     """Per-slice mutable parse state over a FrameSymbols target."""
 
     def __init__(self, fs: FrameSymbols, sh: SliceHeader, slice_idx: int,
-                 ref_list0=None, ref_list1=None, fmo_next=None):
+                 ref_list0=None, ref_list1=None, poc: int = 0,
+                 fmo_next=None):
         self.fs = fs
         self.sh = sh
         self.slice_idx = slice_idx
@@ -59,6 +62,12 @@ class SliceDecodeContext:
         self.ref_list0 = ref_list0 or []
         self.ref_list1 = ref_list1 or []
         self.mvctx = MvContext(fs, slice_idx)
+        self.direct = None
+        self._sd_cache_mb = -1
+        self._sd_cache = None
+        if sh.slice_type == B_SLICE:
+            self.direct = DirectContext(sh, self.ref_list0, self.ref_list1,
+                                        poc)
         self.dq = DequantTables(sh.sps, sh.pps)
         # global intra-4x4-mode grid for mode prediction: -1 unavail
         # (shared across the picture's slices via fs)
@@ -133,15 +142,24 @@ class SliceDecodeContext:
         m = int(self.fs.i4_grid[by, bx])
         return 2 if m < 0 else m
 
+    def spatial_direct_mb(self, mb_idx: int):
+        """Cached per-MB spatial-direct refs/MVPs — must be derived from
+        neighbor state BEFORE any of this MB's partitions are written."""
+        if self._sd_cache_mb != mb_idx:
+            mbx, mby = mb_idx % self.mb_w, mb_idx // self.mb_w
+            self._sd_cache = self.direct.spatial_refs(
+                self.mvctx, mbx * 4, mby * 4, mb_idx)
+            self._sd_cache_mb = mb_idx
+        return self._sd_cache
+
 
 def check_scope(sh: SliceHeader) -> None:
     """Raises NotImplementedError for a slice this decoder does not
-    take: B (and SP/SI) slices, CAVLC or CABAC, and the 8x8 transform."""
-    if sh.slice_type not in (I_SLICE, P_SLICE):
-        raise NotImplementedError(f"slice type {sh.slice_type} (B/SP/SI) "
-                                  f"{_LATER}")
-    if sh.pps.transform_8x8_mode:
-        raise NotImplementedError(f"the 8x8 transform {_LATER}")
+    take: SP and SI slices (Extended profile), CAVLC or CABAC."""
+    if sh.slice_type not in (I_SLICE, P_SLICE, B_SLICE):
+        raise NotImplementedError(
+            f"slice type {sh.slice_type} (SP/SI): the decoder takes I, P "
+            "and B slices")
 
 
 def decode_i_mb_cavlc(br: BitReader, ctx: SliceDecodeContext, mb_idx: int,
@@ -170,20 +188,34 @@ def decode_i_mb_cavlc(br: BitReader, ctx: SliceDecodeContext, mb_idx: int,
         fs.i4_grid[mby * 4:mby * 4 + 4, mbx * 4:mbx * 4 + 4] = 2
         return
 
-    if mb_type_raw == 0:  # I_4x4
-        fs.mb_type[mb_idx] = MB_I4x4
+    if mb_type_raw == 0:  # I_4x4 (or I_8x8 with transform flag)
+        t8 = False
+        if sh.pps.transform_8x8_mode:
+            t8 = br.flag()
+        fs.mb_type[mb_idx] = MB_I8x8 if t8 else MB_I4x4
+        fs.transform8[mb_idx] = t8
+        n_units = 4 if t8 else 16
         modes = np.zeros(16, dtype=np.int32)
-        for k in range(16):
-            bx, by = ZSCAN_TO_RASTER[k] % 4, ZSCAN_TO_RASTER[k] // 4
-            gx, gy = mbx * 4 + bx, mby * 4 + by
+        for k in range(n_units):
+            if t8:
+                bx8, by8 = (k & 1) * 2, (k >> 1) * 2
+                gx, gy = mbx * 4 + bx8, mby * 4 + by8
+            else:
+                bx, by = ZSCAN_TO_RASTER[k] % 4, ZSCAN_TO_RASTER[k] // 4
+                gx, gy = mbx * 4 + bx, mby * 4 + by
             pred = ctx.pred_intra4x4_mode(gx, gy)
             if br.flag():  # prev_intra_pred_mode_flag
                 mode = pred
             else:
                 rem = br.u(3)
                 mode = rem if rem < pred else rem + 1
-            fs.i4_grid[gy, gx] = mode
-            modes[ZSCAN_TO_RASTER[k]] = mode
+            if t8:
+                fs.i4_grid[gy:gy + 2, gx:gx + 2] = mode
+                modes[[by8 * 4 + bx8, by8 * 4 + bx8 + 1,
+                       (by8 + 1) * 4 + bx8, (by8 + 1) * 4 + bx8 + 1]] = mode
+            else:
+                fs.i4_grid[gy, gx] = mode
+                modes[ZSCAN_TO_RASTER[k]] = mode
         fs.i4_modes[mb_idx] = modes
         fs.chroma_mode[mb_idx] = br.ue()
         cbp_code = br.ue()
@@ -240,29 +272,49 @@ def parse_mb_residual_cavlc(br: BitReader, ctx: SliceDecodeContext,
         # write DC into coefficient slot 0 of each 4x4 block (raster)
         fs.coeffs_l[mb_idx, :, 0] = rec_dc.reshape(-1)
 
-    # luma AC / 4x4 blocks in z-scan order
-    for k in range(16):
-        raster = int(ZSCAN_TO_RASTER[k])
-        bx, by = raster % 4, raster // 4
-        gx, gy = mbx * 4 + bx, mby * 4 + by
-        blk8 = (by >> 1) * 2 + (bx >> 1)
-        if not (cbp & (1 << blk8)):
-            fs.nzc_l[gy, gx] = 0
-            continue
-        nc = ctx.nc_luma(gx, gy)
-        if is_i16:
-            coeffs_scan, tc = parse_residual_block(br, nc, 15)
-            blkc = np.zeros(16, dtype=np.int32)
-            blkc[ZIGZAG_4x4[1:]] = coeffs_scan
-        else:
-            coeffs_scan, tc = parse_residual_block(br, nc, 16)
-            blkc = np.zeros(16, dtype=np.int32)
-            blkc[ZIGZAG_4x4] = coeffs_scan
-        deq = dq.luma_ac(blkc, qp, intra)
-        if is_i16:
-            deq[0] = fs.coeffs_l[mb_idx, raster, 0]
-        fs.coeffs_l[mb_idx, raster] = deq
-        fs.nzc_l[gy, gx] = tc
+    if fs.transform8[mb_idx]:
+        # 8x8 transform: 4 interleaved 4x4 CAVLC parses per 8x8 block
+        # (parity: WelsResidualBlockCavlc8x8)
+        fs.ensure_coeffs8()
+        for blk8 in range(4):
+            b8x, b8y = blk8 % 2, blk8 // 2
+            gx0, gy0 = mbx * 4 + b8x * 2, mby * 4 + b8y * 2
+            if not (cbp & (1 << blk8)):
+                fs.nzc_l[gy0:gy0 + 2, gx0:gx0 + 2] = 0
+                continue
+            levels = np.zeros(64, dtype=np.int32)
+            for sub in range(4):
+                gx, gy = gx0 + (sub % 2), gy0 + (sub // 2)
+                nc = ctx.nc_luma(gx, gy)
+                coeffs_scan, tc = parse_residual_block(br, nc, 16)
+                # interleave: scan pos j of sub-block -> 8x8 scan 4*j+sub
+                levels[ZIGZAG_8x8[np.arange(16) * 4 + sub]] = coeffs_scan
+                fs.nzc_l[gy, gx] = tc
+            fs.coeffs8[mb_idx, blk8] = dq.luma8x8(levels, qp, intra)
+    else:
+        # luma AC / 4x4 blocks in z-scan order
+        for k in range(16):
+            raster = int(ZSCAN_TO_RASTER[k])
+            bx, by = raster % 4, raster // 4
+            gx, gy = mbx * 4 + bx, mby * 4 + by
+            blk8 = (by >> 1) * 2 + (bx >> 1)
+            if not (cbp & (1 << blk8)):
+                fs.nzc_l[gy, gx] = 0
+                continue
+            nc = ctx.nc_luma(gx, gy)
+            if is_i16:
+                coeffs_scan, tc = parse_residual_block(br, nc, 15)
+                blkc = np.zeros(16, dtype=np.int32)
+                blkc[ZIGZAG_4x4[1:]] = coeffs_scan
+            else:
+                coeffs_scan, tc = parse_residual_block(br, nc, 16)
+                blkc = np.zeros(16, dtype=np.int32)
+                blkc[ZIGZAG_4x4] = coeffs_scan
+            deq = dq.luma_ac(blkc, qp, intra)
+            if is_i16:
+                deq[0] = fs.coeffs_l[mb_idx, raster, 0]
+            fs.coeffs_l[mb_idx, raster] = deq
+            fs.nzc_l[gy, gx] = tc
 
     # chroma DC (cbp chroma bits: 0x30 mask; any nonzero -> DC present)
     if cbp & 0x30:
@@ -426,11 +478,233 @@ def decode_p_mb_cavlc(br: BitReader, ctx: SliceDecodeContext, mb_idx: int,
     mvc.set_partition(gx, gy, 4, 4, 1, -1, np.zeros(2, np.int32))
     _finish_inter_mb(ctx, mb_idx)
 
+    # NoSubMbPartSizeLessThan8x8Flag (7.3.5): only P_L0_8x8 sub types
+    # keep the 8x8 transform legal (parse_mb_syn_cavlc.cpp:1229)
+    t8_allowed = (mb_type_raw < 3) or all(t == 0 for t in sub_types)
     cbp_code = br.ue()
     if cbp_code >= 48:
         raise ValueError("invalid inter cbp")
     cbp = int(CBP_INTER[cbp_code])
     fs.cbp[mb_idx] = cbp
+    # inter transform_size_8x8_flag (7.3.5; decode_slice.cpp:2278-2288)
+    if (cbp & 15) and sh.pps.transform_8x8_mode and t8_allowed:
+        fs.transform8[mb_idx] = bool(br.u(1))
+    if cbp:
+        parse_mb_residual_cavlc(br, ctx, mb_idx, cbp, is_i16=False)
+    else:
+        fs.qp[mb_idx] = ctx.qp
+        fs.nzc_l[mby * 4:mby * 4 + 4, mbx * 4:mbx * 4 + 4] = 0
+        fs.nzc_c[:, mby * 2:mby * 2 + 2, mbx * 2:mbx * 2 + 2] = 0
+
+
+# ---------------------------------------------------------------------------
+# B slices
+# ---------------------------------------------------------------------------
+# two-partition B mb_type 4..21: (shape16x8?, mode_part0, mode_part1)
+# modes: 0=L0, 1=L1, 2=BI
+_B_TWOPART_MODES = [(0, 0), (1, 1), (0, 1), (1, 0), (0, 2), (1, 2),
+                    (2, 0), (2, 1), (2, 2)]
+# B sub_mb_type (Table 7-18): (mode, n_parts, pw, ph) ; mode -1 = direct
+_B_SUB = {0: (-1, 4, 1, 1), 1: (0, 1, 2, 2), 2: (1, 1, 2, 2), 3: (2, 1, 2, 2),
+          4: (0, 2, 2, 1), 5: (0, 2, 1, 2), 6: (1, 2, 2, 1), 7: (1, 2, 1, 2),
+          8: (2, 2, 2, 1), 9: (2, 2, 1, 2), 10: (0, 4, 1, 1),
+          11: (1, 4, 1, 1), 12: (2, 4, 1, 1)}
+
+
+def apply_direct(ctx: SliceDecodeContext, mb_idx: int, gx0: int, gy0: int,
+                 nblk: int) -> None:
+    """Fill motion grids for a direct region: whole MB (nblk=4, at MB
+    corner) or one 8x8 (nblk=2)."""
+    dctx = ctx.direct
+    mvc = ctx.mvctx
+    fs = ctx.fs
+    mbx, mby = mb_idx % ctx.mb_w, mb_idx // ctx.mb_w
+    mb_gx, mb_gy = mbx * 4, mby * 4
+    if nblk == 4:
+        # GetColocatedMb promotion (mv_pred.cpp:342): whole-direct MB
+        # becomes 16x16-class when the col MB is 16x16/intra/skip.
+        # Feeds deblock interior-bS mode (WelsDeblockingMb: IS_SKIP ->
+        # no interior edges, IS_INTER_16x16 -> nz-only) and the
+        # recursive promotion record for future col use.
+        col16 = getattr(dctx.col, "col_mb16", None)
+        promoted = bool(col16[mb_idx]) if col16 is not None else False
+        fs.mb16[mb_idx] = promoted
+        if fs.mb_type[mb_idx] == MB_BSKIP:
+            fs.ibs_mode[mb_idx] = 2
+        else:
+            fs.ibs_mode[mb_idx] = 1 if promoted else 0
+    if dctx.spatial:
+        ref0, ref1, mv0, mv1, use0, use1 = ctx.spatial_direct_mb(mb_idx)
+        step = 2 if dctx.direct_8x8 else 1
+        for oy in range(0, nblk, step):
+            for ox in range(0, nblk, step):
+                bx, by = gx0 + ox, gy0 + oy
+                cz = dctx.col_zero(bx, by) if dctx.col is not None else False
+                m0 = np.zeros(2, np.int32) if (cz and ref0 == 0) else mv0
+                m1 = np.zeros(2, np.int32) if (cz and ref1 == 0) else mv1
+                mvc.set_partition(bx, by, step, step, 0,
+                                  ref0 if use0 else -1, m0 if use0 else 0)
+                mvc.set_partition(bx, by, step, step, 1,
+                                  ref1 if use1 else -1, m1 if use1 else 0)
+    else:
+        step = 2 if dctx.direct_8x8 else 1
+        for oy in range(0, nblk, step):
+            for ox in range(0, nblk, step):
+                bx, by = gx0 + ox, gy0 + oy
+                r0, r1, mv0, mv1 = dctx.temporal_direct(bx, by)
+                mvc.set_partition(bx, by, step, step, 0, r0, mv0)
+                mvc.set_partition(bx, by, step, step, 1, r1, mv1)
+
+
+def decode_b_skip_mb(ctx: SliceDecodeContext, mb_idx: int) -> None:
+    fs = ctx.fs
+    _mb_common_init(ctx, mb_idx)
+    mbx, mby = mb_idx % ctx.mb_w, mb_idx // ctx.mb_w
+    fs.mb_type[mb_idx] = MB_BSKIP
+    apply_direct(ctx, mb_idx, mbx * 4, mby * 4, 4)
+    fs.cbp[mb_idx] = 0
+    fs.qp[mb_idx] = ctx.qp
+    _finish_inter_mb(ctx, mb_idx)
+
+
+def decode_b_mb_cavlc(br: BitReader, ctx: SliceDecodeContext, mb_idx: int,
+                      mb_type_raw: int) -> None:
+    fs, sh = ctx.fs, ctx.sh
+    if mb_type_raw >= 23:
+        _mb_common_init(ctx, mb_idx)
+        decode_i_mb_cavlc(br, ctx, mb_idx, mb_type_raw - 23)
+        _mark_intra_in_grids(ctx, mb_idx)
+        return
+    _mb_common_init(ctx, mb_idx)
+    mbx, mby = mb_idx % ctx.mb_w, mb_idx // ctx.mb_w
+    gx, gy = mbx * 4, mby * 4
+    mvc = ctx.mvctx
+    n0, n1 = sh.num_ref_idx_l0_active, sh.num_ref_idx_l1_active
+
+    if mb_type_raw == 0:  # B_Direct_16x16
+        fs.mb_type[mb_idx] = MB_BDIRECT
+        apply_direct(ctx, mb_idx, gx, gy, 4)
+    elif mb_type_raw <= 3:  # B_X_16x16
+        fs.mb_type[mb_idx] = MB_B16x16
+        mode = mb_type_raw - 1  # 0=L0,1=L1,2=BI
+        lists = (0,) if mode == 0 else (1,) if mode == 1 else (0, 1)
+        refs = {}
+        for lx in lists:
+            refs[lx] = _read_ref_idx(br, n0 if lx == 0 else n1,
+                                      ctx.ref_list0 if lx == 0 else ctx.ref_list1)
+        # unused lists become final (ref -1, mv 0) as soon as refs are known
+        for lx in (0, 1):
+            if lx not in lists:
+                mvc.set_partition(gx, gy, 4, 4, lx, -1, np.zeros(2, np.int32))
+        for lx in lists:
+            mvd = np.array([br.se(), br.se()], np.int32)
+            mv = mvc.pred_mv(gx, gy, 4, 4, lx, refs[lx], mb_idx) + mvd
+            mvc.set_partition(gx, gy, 4, 4, lx, refs[lx], mv)
+    elif mb_type_raw <= 21:  # two partitions
+        t = mb_type_raw - 4
+        is16x8 = (t % 2) == 0
+        modes = _B_TWOPART_MODES[t // 2]
+        fs.mb_type[mb_idx] = MB_B16x8 if is16x8 else MB_B8x16
+        pw, ph = (4, 2) if is16x8 else (2, 4)
+        part_pos = [(gx, gy), (gx, gy + 2) if is16x8 else (gx + 2, gy)]
+        refs = [[-1, -1], [-1, -1]]
+        for lx in (0, 1):
+            for part in range(2):
+                if modes[part] == lx or modes[part] == 2:
+                    refs[part][lx] = _read_ref_idx(br, n0 if lx == 0 else n1,
+                                                   ctx.ref_list0 if lx == 0 else ctx.ref_list1)
+        # unused lists become final immediately (visible to later MVPs)
+        for part in range(2):
+            px, py = part_pos[part]
+            for lx in (0, 1):
+                if refs[part][lx] < 0:
+                    mvc.set_partition(px, py, pw, ph, lx, -1, np.zeros(2, np.int32))
+        for lx in (0, 1):
+            for part in range(2):
+                px, py = part_pos[part]
+                if refs[part][lx] >= 0:
+                    mvd = np.array([br.se(), br.se()], np.int32)
+                    mv = mvc.pred_mv(px, py, pw, ph, lx, refs[part][lx], mb_idx) + mvd
+                    mvc.set_partition(px, py, pw, ph, lx, refs[part][lx], mv)
+    else:  # 22: B_8x8
+        fs.mb_type[mb_idx] = MB_B8x8
+        sub_types = [br.ue() for _ in range(4)]
+        if any(t > 12 for t in sub_types):
+            raise ValueError(f"invalid B sub_mb_type {sub_types}")
+        subs = [_B_SUB[t] for t in sub_types]
+        refs = [[-1, -1] for _ in range(4)]
+        for lx in (0, 1):
+            for q in range(4):
+                mode = subs[q][0]
+                if mode == lx or mode == 2:
+                    refs[q][lx] = _read_ref_idx(br, n0 if lx == 0 else n1,
+                                                ctx.ref_list0 if lx == 0 else ctx.ref_list1)
+        # direct sub-blocks resolved before any mvd parse uses neighbors
+        for q in range(4):
+            if subs[q][0] == -1:
+                apply_direct(ctx, mb_idx, gx + (q % 2) * 2, gy + (q // 2) * 2, 2)
+        # CAVLC quirk (parse_mb_syn_cavlc.cpp: ref_idx_list memset to
+        # REF_NOT_IN_LIST and never assigned for temporal-direct
+        # quadrants, then written into the MVP ref cache in the mv
+        # loop): same-MB MVPs see temporal-direct quadrants as ref -1
+        # while their MVs stay visible for the median.  CABAC writes
+        # the true refs (UpdateP8x8RefCacheIdxCabac in the direct
+        # fill), so this masking is CAVLC-only.
+        _dmask = []
+        if ctx.direct is not None and not ctx.direct.spatial:
+            for q in range(4):
+                if subs[q][0] == -1:
+                    q_gx, q_gy = gx + (q % 2) * 2, gy + (q // 2) * 2
+                    for lx in (0, 1):
+                        _dmask.append(
+                            (lx, q_gx, q_gy,
+                             fs.gref[lx, q_gy:q_gy + 2, q_gx:q_gx + 2].copy()))
+                        fs.gref[lx, q_gy:q_gy + 2, q_gx:q_gx + 2] = -1
+        # unused lists of non-direct sub-blocks become final immediately
+        for q in range(4):
+            if subs[q][0] == -1:
+                continue
+            q_gx, q_gy = gx + (q % 2) * 2, gy + (q // 2) * 2
+            for lx in (0, 1):
+                if refs[q][lx] < 0:
+                    mvc.set_partition(q_gx, q_gy, 2, 2, lx, -1,
+                                      np.zeros(2, np.int32))
+        for lx in (0, 1):
+            for q in range(4):
+                mode, n_parts, pw, ph = subs[q]
+                if mode == -1 or (mode != lx and mode != 2):
+                    continue
+                q_gx, q_gy = gx + (q % 2) * 2, gy + (q // 2) * 2
+                for part in range(n_parts):
+                    if (pw, ph) == (2, 1):
+                        px, py = q_gx, q_gy + part
+                    elif (pw, ph) == (1, 2):
+                        px, py = q_gx + part, q_gy
+                    elif (pw, ph) == (1, 1):
+                        px, py = q_gx + (part % 2), q_gy + (part // 2)
+                    else:
+                        px, py = q_gx, q_gy
+                    mvd = np.array([br.se(), br.se()], np.int32)
+                    mv = mvc.pred_mv(px, py, pw, ph, lx, refs[q][lx], mb_idx) + mvd
+                    mvc.set_partition(px, py, pw, ph, lx, refs[q][lx], mv)
+        # restore the true refs of temporal-direct quadrants so later
+        # MBs (and recon) see them
+        for lx, q_gx, q_gy, vals in _dmask:
+            fs.gref[lx, q_gy:q_gy + 2, q_gx:q_gx + 2] = vals
+    _finish_inter_mb(ctx, mb_idx)
+
+    # NoSubMbPartSizeLessThan8x8Flag for B (7.3.5): B_8x8 keeps it true
+    # only for 8x8-shaped subs (direct counts as 8x8 under the reference's
+    # part-count table, wels_common_basis.h g_ksInterBSubMbTypeInfo);
+    # B_Direct_16x16 stays allowed (decode_slice.cpp:2825 "|| noSub")
+    t8_allowed = (mb_type_raw != 22) or all(t <= 3 for t in sub_types)
+    cbp_code = br.ue()
+    if cbp_code >= 48:
+        raise ValueError("invalid inter cbp")
+    cbp = int(CBP_INTER[cbp_code])
+    fs.cbp[mb_idx] = cbp
+    if (cbp & 15) and sh.pps.transform_8x8_mode and t8_allowed:
+        fs.transform8[mb_idx] = bool(br.u(1))
     if cbp:
         parse_mb_residual_cavlc(br, ctx, mb_idx, cbp, is_i16=False)
     else:
@@ -440,7 +714,7 @@ def decode_p_mb_cavlc(br: BitReader, ctx: SliceDecodeContext, mb_idx: int,
 
 
 def decode_slice_mbs_cavlc(br: BitReader, ctx: SliceDecodeContext) -> int:
-    """The per-MB Python parser: all MBs of an I or P CAVLC slice, in
+    """The per-MB Python parser: all MBs of an I, P or B CAVLC slice, in
     raster order or along ctx.fmo_next. Returns the index one past the
     last MB."""
     sh = ctx.sh
@@ -459,18 +733,21 @@ def decode_slice_mbs_cavlc(br: BitReader, ctx: SliceDecodeContext) -> int:
             if mb_idx >= n_mb or not br.more_rbsp_data():
                 break
         return mb_idx
+    is_b = sh.slice_type == B_SLICE
+    skip_mb = decode_b_skip_mb if is_b else decode_p_skip_mb
+    coded_mb = decode_b_mb_cavlc if is_b else decode_p_mb_cavlc
     while mb_idx < n_mb:
         skip_run = br.ue()
         for _ in range(skip_run):
             if mb_idx >= n_mb:
                 raise ValueError("mb_skip_run past end of picture")
-            decode_p_skip_mb(ctx, mb_idx)
+            skip_mb(ctx, mb_idx)
             fs.mb_correct[mb_idx] = True
             mb_idx = nxt(mb_idx)
         if mb_idx >= n_mb or not br.more_rbsp_data():
             break
         mb_type_raw = br.ue()
-        decode_p_mb_cavlc(br, ctx, mb_idx, mb_type_raw)
+        coded_mb(br, ctx, mb_idx, mb_type_raw)
         fs.mb_correct[mb_idx] = True
         mb_idx = nxt(mb_idx)
     return mb_idx
@@ -478,9 +755,12 @@ def decode_slice_mbs_cavlc(br: BitReader, ctx: SliceDecodeContext) -> int:
 
 def decode_slice_data_cavlc(br: BitReader, ctx: SliceDecodeContext) -> int:
     """Parse all MBs of a CAVLC slice. Returns index one past the last MB.
-    FMO slices go to the Python parser, the others to the host C."""
+    I and P slices without FMO or the 8x8 transform go to the host C, the
+    others (B, FMO, transform_8x8_mode) to the Python parser."""
     from ..native import parse_cavlc_slice_native
-    check_scope(ctx.sh)
-    if ctx.sh.pps.num_slice_groups > 1:
+    sh = ctx.sh
+    check_scope(sh)
+    if sh.slice_type == B_SLICE or sh.pps.num_slice_groups > 1 or \
+            sh.pps.transform_8x8_mode:
         return decode_slice_mbs_cavlc(br, ctx)
     return parse_cavlc_slice_native(br, ctx)

@@ -5,9 +5,9 @@ CreateImplicitWeightTable:397).
 A SliceWP descriptor is built once per slice and attached to
 FrameSymbols.wp_by_slice; reconstruction consults it per MB.
 
-Copied from openh264_tpu/decoder/wpred.py. The recon of this package
-runs the single-list modes (none, P explicit); the B modes are built
-here for the B slices of a later slice of the port.
+Copied from openh264_tpu/decoder/wpred.py. The batched recon
+(recon_batch.py) runs every mode; its _WPLuts.implicit_w0 is the
+vectorized form of implicit_weights.
 """
 
 from __future__ import annotations
@@ -103,3 +103,13 @@ def build_slice_wp(sh, init_l0, init_l1, cur_poc=None) -> SliceWP:
                 w0[r0, r1] = 64 - dsf
     return SliceWP(WP_B_IMPLICIT, 5, 5, None, w0)
 
+
+def implicit_weights(wp: SliceWP, r0: int, r1: int):
+    """(w0, w1) for a BI partition under implicit weighting; refs outside
+    the table (concealed) fall back to 32/32."""
+    t = wp.implicit_w0
+    if t is not None and 0 <= r0 < t.shape[0] and 0 <= r1 < t.shape[1]:
+        w = int(t[r0, r1])
+    else:
+        w = 32
+    return w, 64 - w

@@ -19,8 +19,12 @@ frame's FrameSymbols (:178-277), in the kernel's inputs:
   oracle does with them); one row when both offsets are equal, else
   [2, n] (deblock.py:255-260);
 - the per-MB alpha/beta filter offsets of the MB's slice, or None where
-  they are all 0 (deblock.py:235-237, :261-263).
-The 8x8 transform's missing interior edges are the one thing refused.
+  they are all 0 (deblock.py:235-237, :261-263);
+- an 8x8-transform MB (fs.transform8) has no interior 4-sample luma
+  edges: its BSV columns 1 and 3 and BSH rows 1 and 3 are zeroed, the
+  edges the oracle skips (deblock.py:214-216). Chroma edges follow luma
+  edges 0 and 2 only (:251-254), so chroma is untouched, and the kernel
+  needs no change.
 
 A CUDA plane goes to the Hopper kernel (deblock_cuda.deblock_frame_cuda),
 a CPU plane to its plain version (deblock_torch.deblock_frame_device).
@@ -40,8 +44,6 @@ def deblock_inputs(fs):
     """(BSV, BSH, qp_mb, cqp_mb, alpha_off, beta_off) as numpy int32 for
     one frame's FrameSymbols, with the oracle's skipped edges zeroed;
     cqp_mb is [n] or [2, n], and each offset None when all zero."""
-    if fs.transform8.any():
-        raise ValueError("the deblock kernel has no 8x8-transform edges")
     mb_w, mb_h = fs.mb_w, fs.mb_h
     BSV, BSH = precompute_bs(fs)
     BSV = BSV.astype(np.int32)
@@ -63,6 +65,10 @@ def deblock_inputs(fs):
     off = np.repeat(np.repeat((dd == 1) | ~ok, 4, 0), 4, 1)
     BSV[off] = 0
     BSH[off] = 0
+    # no interior 4-sample luma edges (1 and 3) in an 8x8-transform MB
+    t8 = np.repeat(np.repeat(fs.transform8.reshape(mb_h, mb_w), 4, 0), 4, 1)
+    BSV[t8 & (np.arange(4 * mb_w) % 2 == 1)[None, :]] = 0
+    BSH[t8 & (np.arange(4 * mb_h) % 2 == 1)[:, None]] = 0
     qp = fs.qp.astype(np.int32)
     offs = getattr(fs, "chroma_qp_offsets", (0, 0))
     cqp = np.stack([CHROMA_QP_TABLE[np.clip(qp + o, 0, 51)]

@@ -219,10 +219,12 @@ def parse_cavlc_slice_native(br, ctx) -> int:
 def recon_intra_mbs_native(y, u, v, fs, intra_list, constrained: bool):
     """Intra recon of the I4x4 / I16x16 / IPCM MBs `intra_list` (raster
     order) into the host uint8 planes y, u, v in place (MB aligned,
-    C-contiguous). I8x8 MBs are refused."""
+    C-contiguous). A list with I8x8 MBs is a caller's fault: such a
+    picture's intra MBs all go to the Python recon
+    (recon_batch.recon_frame_batch)."""
     from .decoder.framedata import MB_I8x8
     if (fs.mb_type[intra_list] == MB_I8x8).any():
-        raise ValueError("recon_intra_mbs_native: no I8x8 MBs")
+        raise NotImplementedError("recon_intra_mbs_native: no I8x8 MBs")
     n_mb = fs.n_mb
     ipcm_flag = np.zeros(n_mb, np.uint8)
     ipcm_buf = np.zeros((1, 384), np.uint8)

@@ -1,4 +1,5 @@
-"""Batched 4x4 integer transforms, AoS layout [..., 4, 4] (int32 torch).
+"""Batched 4x4 integer transforms, AoS layout [..., 4, 4] (int32 torch),
+and the decoder's 8x8 inverse transform.
 
 Port of openh264_tpu/ops/transform.py. Every function is batched over
 arbitrary leading axes and bit-exact with its JAX twin:
@@ -7,7 +8,9 @@ arbitrary leading axes and bit-exact with its JAX twin:
   product |coef| * mf (9180 * 13107 for a +-255 residual) is < 2**31.
 - the small constant matrix products are written as broadcast
   multiply-sums: CUDA has no integer matmul.
-- int16 stores of the reference are the explicit wrap `wrap_i16`.
+- int16 stores of the reference are the explicit wrap `wrap_i16`. The
+  8x8 pass wraps int32 sums to int16 where the numpy oracle wraps int64
+  ones: both keep the low 16 bits, so they agree for any int32 input.
 """
 
 from __future__ import annotations
@@ -143,6 +146,44 @@ def idct4x4_add(pred, coef):
     t3 = h1 + (h3 >> 1)
     r = torch.stack([t0 + t3, t1 + t2, t1 - t2, t0 - t3], dim=-2)
     out = pred.to(I32) + ((r + 32) >> 6)
+    return out.clamp(0, 255).to(torch.uint8)
+
+
+def _idct8_pass(m):
+    """One 1-D pass of the 8x8 inverse transform along the last axis,
+    each op stored int16 (wrap) like the reference's scalar code
+    (oracle/intra8.py::_idct8_butterfly)."""
+    p = [m[..., k] for k in range(8)]
+    W = wrap_i16
+    a0 = W(p[0] + p[4])
+    a1 = W(p[0] - p[4])
+    a2 = W(p[6] - (p[2] >> 1))
+    a3 = W(p[2] + (p[6] >> 1))
+    b0 = W(a0 + a3)
+    b2 = W(a1 - a2)
+    b4 = W(a1 + a2)
+    b6 = W(a0 - a3)
+    a0 = W(-p[3] + p[5] - p[7] - (p[7] >> 1))
+    a1 = W(p[1] + p[7] - p[3] - (p[3] >> 1))
+    a2 = W(-p[1] + p[7] + p[5] + (p[5] >> 1))
+    a3 = W(p[3] + p[5] + p[1] + (p[1] >> 1))
+    b1 = W(a0 + (a3 >> 2))
+    b3 = W(a1 + (a2 >> 2))
+    b5 = W(a2 - (a1 >> 2))
+    b7 = W(a3 - (a0 >> 2))
+    return torch.stack([W(b0 + b7), W(b2 - b5), W(b4 + b3), W(b6 + b1),
+                        W(b6 - b1), W(b4 - b3), W(b2 + b5), W(b0 - b7)], -1)
+
+
+def idct8x8_add(pred, coef):
+    """8x8 inverse transform + add, batched: pred [..., 8, 8] uint8, coef
+    [..., 64] or [..., 8, 8] int (dequantised, raster). Bit-exact with
+    oracle/intra8.py::idct8x8_add (IdctResAddPred8x8_c, decode_mb_aux.cpp:80:
+    int16 intermediates wrap); the row pass, then the column pass."""
+    c = coef.to(I32).reshape(*coef.shape[:-1] if coef.shape[-1] == 64
+                             else coef.shape[:-2], 8, 8)
+    res = _idct8_pass(_idct8_pass(c).transpose(-1, -2)).transpose(-1, -2)
+    out = pred.to(I32) + ((32 + res) >> 6)
     return out.clamp(0, 255).to(torch.uint8)
 
 

@@ -461,16 +461,26 @@ def _decoder_input_stream(kind):
     """Streams whose decode reaches the kernel's decoder-only inputs or
     the decoder's parse layer: deblock idc 2 with 3 slices, a chroma QP
     offset, per-slice alpha/beta offsets (test_torch_streams.STREAMS),
-    CABAC from the port's encoder, and the idc-2 stream with sent 4x4
-    scaling lists."""
-    from test_torch_streams import _stream, scaling_lists, with_pps
-    if kind == "cabac":
+    CABAC from the port's encoder, the idc-2 stream with sent 4x4
+    scaling lists; and B pictures with the 8x8 transform: CAVLC from
+    test_torch_streams.b_stream (implicit weights, sent 4x4 and 8x8
+    scaling lists) and CABAC from steered_cabac_stream over the CABAC
+    stream (one slice per MB row)."""
+    from test_torch_streams import (_stream, b_stream, scaling_lists,
+                                    steered_cabac_stream, with_pps)
+    if kind in ("cabac", "b_cabac"):
         from openh264_tpu_torch.encoder.config import EncoderConfig
         from openh264_tpu_torch.encoder.encoder import H264Encoder
         enc = H264Encoder(EncoderConfig(width=HW, height=HH, qp=30,
                                         num_slices=2, entropy_cabac=True),
                           device="cpu")
-        return b"".join(enc.encode_frame(*f) for f in _host_frames(3, seed=8))
+        bs = b"".join(enc.encode_frame(*f) for f in _host_frames(3, seed=8))
+        if kind == "b_cabac":
+            return steered_cabac_stream(bs, idc=2, scaling=True, seed=9,
+                                        rows_per_slice=1)
+        return bs
+    if kind == "b_cavlc":
+        return b_stream(idc=2, scaling=True, w=HW, h=HH, seed=9)[0]
     if kind == "scaling_lists":
         return with_pps(_stream("idc2_slices3"), scaling=True,
                         scaling_lists=scaling_lists(3))
@@ -479,11 +489,13 @@ def _decoder_input_stream(kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["idc2_slices3", "chroma_offset", "offsets",
-                                  "cabac", "scaling_lists"])
+                                  "cabac", "scaling_lists", "b_cavlc",
+                                  "b_cabac"])
 def test_cuda_decoder_inputs_match_cpu(kind):
     """Deblock idc 2, a chroma QP offset, non-zero slice alpha/beta
-    offsets, CABAC and scaling lists: H264Decoder on the card gives the
-    CPU decode's frames, one deblock launch per picture."""
+    offsets, CABAC, scaling lists, and B pictures with the 8x8 transform
+    in CAVLC and CABAC: H264Decoder on the card gives the CPU decode's
+    frames, one deblock launch per picture."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from openh264_tpu_torch.decoder import H264Decoder

@@ -11,9 +11,12 @@ sender writes: constant QP, I4x4, intra MBs in P pictures, 4 slices with
 slices, a chroma QP offset, screen content with the scroll candidate;
 and one whose slice headers carry non-zero alpha/beta offsets, per
 slice. Then: chunked input equals the whole stream, empty and garbage
-input give no frames, and the streams the decoder does not take (B
-slices, CAVLC or CABAC, and the 8x8 transform, with or without scaling
-lists) raise NotImplementedError instead of being concealed.
+input give no frames; the streams the decoder refused before it took B
+slices and the 8x8 transform (a bare B slice appended, CAVLC or CABAC;
+a PPS rewritten to the 8x8 transform, with or without scaling lists)
+decode as the JAX decoder decodes them; and a stream with an SP slice,
+which the decoder does not take, raises NotImplementedError instead of
+being concealed.
 """
 
 import numpy as np
@@ -98,11 +101,11 @@ def test_empty_and_garbage_give_no_frames():
 
 
 def _refused_stream(kind):
-    """A stream the decoder does not take: the constqp stream, or CABAC
-    from the port's encoder, with a B slice appended; or the constqp
-    stream with its PPS rewritten to the 8x8 transform, alone or with
-    scaling lists."""
-    if kind == "cabac_b_slice":
+    """The constqp stream, or CABAC from the port's encoder, with a B
+    slice appended (b_slice, cabac_b_slice) or an SP slice (sp_slice,
+    cabac_sp_slice); or the constqp stream with its PPS rewritten to the
+    8x8 transform, alone or with scaling lists."""
+    if kind.startswith("cabac"):
         enc = H264Encoder(EncoderConfig(width=96, height=64, qp=28,
                                         entropy_cabac=True), device="cpu")
         bs = b"".join(enc.encode_frame(*f) for f in _frames(2, 96, 64))
@@ -112,8 +115,8 @@ def _refused_stream(kind):
     sps = parse_sps(next(n for n in nals if n.nal_unit_type == NAL_SPS).rbsp)
     pps = parse_pps(next(n for n in nals if n.nal_unit_type == NAL_PPS).rbsp,
                     {sps.sps_id: sps})
-    if kind in ("b_slice", "cabac_b_slice"):
-        return bs + _b_slice(sps, pps, 4)
+    if kind.endswith("_slice"):
+        return bs + _b_slice(sps, pps, 4, sp=kind.endswith("sp_slice"))
     change = {"transform8": dict(transform8=True),
               "transform8_scaling": dict(transform8=True, scaling=True)}[kind]
     return b"".join(
@@ -125,9 +128,31 @@ def _refused_stream(kind):
 
 @pytest.mark.parametrize("kind", ["b_slice", "cabac_b_slice", "transform8",
                                   "transform8_scaling"])
+def test_formerly_refused_streams_match_jax(kind):
+    """The streams the decoder refused while it took neither B slices nor
+    the 8x8 transform now decode as the JAX decoder decodes them, in
+    every error-concealment mode: the bare B slice (one mb_skip_run of
+    0, then no more data) and the 4x4-coded slices read under an 8x8
+    PPS are concealed alike."""
+    bs = _refused_stream(kind)
+    for ec in (0, 2, 6):
+        if ec == 0 and kind.startswith("transform8"):
+            # nothing conceals the broken slices: both decoders raise
+            for dec in (H264Decoder(device="cpu", ec_mode=0),
+                        JaxDecoder(ec_mode=0)):
+                with pytest.raises((ValueError, EOFError)):
+                    dec.decode_annexb(bs)
+            continue
+        _equal(H264Decoder(device="cpu", ec_mode=ec).decode_annexb(bs),
+               JaxDecoder(ec_mode=ec).decode_annexb(bs))
+    dec = H264Decoder(device="cpu")
+    _equal(dec.feed_annexb(bs) + dec.flush(), JaxDecoder().decode_annexb(bs))
+
+
+@pytest.mark.parametrize("kind", ["sp_slice"])
 def test_out_of_scope_streams_raise(kind):
     """NotImplementedError comes out of decode_annexb and of feed_annexb /
-    flush, in every error-concealment mode: such a slice is refused, not
+    flush, in every error-concealment mode: an SP slice is refused, not
     concealed, and no frame of it comes back."""
     bs = _refused_stream(kind)
     for ec in (0, 2, 6):

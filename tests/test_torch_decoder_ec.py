@@ -172,9 +172,9 @@ def test_api_matches_jax():
 
 
 def test_api_lets_not_implemented_through():
-    """A CABAC stream with a B slice appended raises out of the API's
+    """A CABAC stream with an SP slice appended raises out of the API's
     decode calls; it is not reported as a bitstream error."""
-    bs = _refused_stream("cabac_b_slice")
+    bs = _refused_stream("cabac_sp_slice")
     dec = WelsCreateDecoder(device="cpu")
     dec.Initialize()
     with pytest.raises(NotImplementedError):

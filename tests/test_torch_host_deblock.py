@@ -175,8 +175,8 @@ def test_inputs_zero_the_skipped_edges():
 def test_inputs_refuse_offsets():
     """Alpha / beta offsets and two chroma QP offsets, which the kernel
     once refused, now pass through per MB (the decoder's slices carry
-    them); what deblock_inputs still refuses is the 8x8 transform, whose
-    interior edges the kernel does not skip."""
+    them). The 8x8 transform, which deblock_inputs refused too, is
+    covered by test_torch_recon_b.py::test_deblock_8x8_matches_oracle."""
     from openh264_tpu_torch.tables import CHROMA_QP_TABLE
     fs = _port_fs(_random_fs(6, lambda rng, n: np.zeros(n)))
     fs.alpha_offset[:] = 2
@@ -187,9 +187,6 @@ def test_inputs_refuse_offsets():
     np.testing.assert_array_equal(bo, fs.beta_offset)
     np.testing.assert_array_equal(cqp, CHROMA_QP_TABLE[
         np.clip(np.stack([qp + 2, qp - 3]), 0, 51)])
-    fs.transform8[5] = True
-    with pytest.raises(ValueError):
-        deblock_host.deblock_inputs(fs)
 
 
 def _decoder_drift(kw, n=3):

@@ -77,6 +77,16 @@ Phases, each fatal on failure:
      per picture, the MB types reached, which must include B, I8x8 and
      8x8-transform inter MBs, and the recon seconds of pictures with
      I8x8 MBs), equal to a CPU decode in a worker process beside.
+ 11. slice-parallel encoding: SliceParallelEncoder with 3 bands of 15 MB
+     rows, all on cuda:0 (the bands one after the other, the gather and
+     the deblock of the merged frame on the card), 8 frames of the 720p
+     content at QP 28, one timed run (frames/s, IDR and median P
+     seconds, one deblock launch per frame); its bytes must equal
+     H264Encoder(num_slices=3) on the card over the same frames (a
+     configuration on which the two agree; timed next), its stream must
+     decode through H264Decoder(device="cuda") to its DPB planes, frame
+     by frame, and its first 2 frames must equal a CPU
+     SliceParallelEncoder's in a worker process beside that decode.
 It prints a `kernels` JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a GPU, or without the package beside it, it exits non-zero and
@@ -114,6 +124,9 @@ DEC_CROSS = 2          # phase 8, 9 frames decoded on both CUDA and the CPU
 FMO_W, FMO_H = 176, 144  # phase 9 FMO stream (the Python parser's)
 B_W, B_H = 176, 144      # phase 10 CAVLC B stream (the Python parser's)
 B_SEED = 2027            # phase 10 stream writers
+SP_FRAMES = 8          # phase 11 slice-parallel run: 1 IDR + 7 P
+SP_SLICES = 3          # phase 11 bands of 15 MB rows, all on cuda:0
+SP_CROSS = 2           # phase 11 frames encoded on the CPU too
 CPU_THREADS = 2        # torch threads of each CPU cross-check process
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, used for 32-bit integer work
@@ -693,7 +706,8 @@ def phase_host_encoder(dev, card: str):
     return out, launches, first_runs, {"api_cavlc": recon}
 
 
-def _timed_host_run(name, kind, kw, dev, fr, card, recon=None):
+def _timed_host_run(name, kind, kw, dev, fr, card, recon=None,
+                    phase="rest"):
     """One timed run of the host encoder / API: its bytes per frame, and
     frames/s, IDR and median P seconds; the deblock kernel must launch
     once per deblocked frame. With a `recon` list, each frame's
@@ -707,7 +721,7 @@ def _timed_host_run(name, kind, kw, dev, fr, card, recon=None):
     dt = time.perf_counter() - t0
     n_launch = deblock_cuda.launches
     coded = sum(1 for b in bs if b)
-    print(f"rest {name}: {len(fr)} frames {W720}x{H720} in {dt:.3f} s = "
+    print(f"{phase} {name}: {len(fr)} frames {W720}x{H720} in {dt:.3f} s = "
           f"{len(fr) / dt:.3f} frames/s ({coded} coded, "
           f"{sum(map(len, bs))} bytes) on {card}; IDR {secs[0]:.3f} s, P "
           f"{[round(t, 3) for t in secs[1:]]} s; deblock kernel launches "
@@ -1504,6 +1518,109 @@ def phase_b_t8(dev, card, cabac):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: slice-parallel encoding
+# ---------------------------------------------------------------------------
+def sp_config():
+    from openh264_tpu_torch.encoder.config import EncoderConfig
+    return EncoderConfig(width=W720, height=H720, qp=28, num_slices=SP_SLICES)
+
+
+def cpu_slice_parallel(frames):
+    """In a worker process: the bytes of `frames` from
+    SliceParallelEncoder(sp_config(), ["cpu"] * SP_SLICES), and their
+    seconds."""
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+    sys.path.insert(0, str(ROOT))
+    from openh264_tpu_torch.parallel import SliceParallelEncoder
+    t0 = time.perf_counter()
+    spe = SliceParallelEncoder(sp_config(), ["cpu"] * SP_SLICES)
+    return [spe.encode_frame(*f) for f in frames], time.perf_counter() - t0
+
+
+def phase_slice_parallel(dev, card):
+    """Phase 11: SliceParallelEncoder on SP_SLICES bands, every band on
+    cuda:0, over SP_FRAMES frames of 720p content, one timed run whose
+    deblock launches must equal its frames; its bytes against
+    H264Encoder(num_slices=SP_SLICES) on the card, timed next on the same
+    frames. Then, untimed: its stream decoded on the card against its DPB
+    planes, beside a CPU SliceParallelEncoder of the first SP_CROSS
+    frames in a worker process (started after the timed runs, so that it
+    takes no host time from them). Returns the summary and the timed
+    run's deblock launches."""
+    import torch
+    from openh264_tpu_torch.decoder import H264Decoder
+    from openh264_tpu_torch.encoder import deblock_cuda
+    from openh264_tpu_torch.parallel import SliceParallelEncoder
+    fr = frames_720p(SP_FRAMES, seed=REST_SEED)
+    devices = [f"{dev}:0"] * SP_SLICES
+    spe = SliceParallelEncoder(sp_config(), devices)
+    bs, secs, recon = [], [], []
+    deblock_cuda.launches = 0
+    t0 = time.perf_counter()
+    for f in fr:
+        t1 = time.perf_counter()
+        bs.append(spe.encode_frame(*f))
+        secs.append(time.perf_counter() - t1)
+        recon.append([p.clone() for p in spe.dpb[-1].planes])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = deblock_cuda.launches
+    run = {"fps": SP_FRAMES / dt, "seconds": dt, "idr_s": secs[0],
+           "p_s": secs[1:], "p_s_median": statistics.median(secs[1:]),
+           "bytes": sum(map(len, bs)), "deblock_launches": launches}
+    print(f"slice parallel: {SP_FRAMES} frames {W720}x{H720} in {dt:.3f} s "
+          f"= {run['fps']:.3f} frames/s ({run['bytes']} bytes, slice NALs "
+          f"per frame {[b.count(b'\x00\x00\x00\x01') for b in bs]}) on "
+          f"{SP_SLICES} bands on {devices[0]}, {card}; IDR {secs[0]:.3f} s, "
+          f"P {[round(t, 3) for t in secs[1:]]} s (median "
+          f"{run['p_s_median']:.3f}); deblock kernel launches {launches}")
+    if launches != SP_FRAMES:
+        fail(f"slice parallel: deblock kernel launched {launches} times for "
+             f"{SP_FRAMES} frames")
+    if not all(p.is_cuda for r in recon for p in r):
+        fail("slice parallel: the DPB left the card")
+    want, ms_run = _timed_host_run(
+        f"H264Encoder(num_slices={SP_SLICES})", "host",
+        dict(qp=28, num_slices=SP_SLICES), dev, fr, card,
+        phase="slice parallel")
+    run["multislice"] = ms_run
+    print(f"slice parallel: {run['fps']:.3f} frames/s against "
+          f"H264Encoder(num_slices={SP_SLICES})'s {ms_run['fps']:.3f} in "
+          f"this call ({run['fps'] / ms_run['fps']:.3f}x)")
+    if bs != want:
+        fail(f"slice parallel: bytes differ from H264Encoder(num_slices="
+             f"{SP_SLICES}) on the card")
+    print(f"slice parallel: bytes equal H264Encoder(num_slices={SP_SLICES})'s "
+          f"on the card")
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        job = pool.submit(cpu_slice_parallel, fr[:SP_CROSS])
+        deblock_cuda.launches = 0
+        t0 = time.perf_counter()
+        frames = H264Decoder(device=dev).decode_annexb(b"".join(bs))
+        torch.cuda.synchronize()
+        run["decode_s"] = time.perf_counter() - t0
+        got = [f.planes() for f in frames]
+        want_planes = [[p.cpu().numpy() for p in r] for r in recon]
+        if not same_frames(got, want_planes):
+            fail(f"slice parallel: the card's decode ({len(got)} frames) "
+                 f"differs from the encoder's DPB planes")
+        print(f"slice parallel: H264Decoder(device={dev!r}) decoded "
+              f"{len(got)} frames in {run['decode_s']:.3f} s (deblock "
+              f"launches {deblock_cuda.launches}), each equal to the "
+              f"encoder's DPB planes")
+        cpu_bs, cpu_s = job.result()
+    if cpu_bs != bs[:SP_CROSS]:
+        fail("slice parallel: CUDA and CPU streams differ")
+    print(f"slice parallel cross-check: CPU bands encoded {SP_CROSS} frames "
+          f"in {cpu_s:.2f} s ({CPU_THREADS} torch threads, beside the "
+          f"card's decode), byte-identical to the card's")
+    run["cpu_cross_s"] = cpu_s
+    return run, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1572,14 +1689,19 @@ def main():
     print(f"phase decoder B / 8x8: {b_t8['seconds']:.1f} s")
     if b_launches == 0:
         fail("the decoder's B / 8x8 path never launched the deblock kernel")
+    t0 = time.perf_counter()
+    sp, sp_launches = phase_slice_parallel(dev, card)
+    sp["phase_seconds"] = time.perf_counter() - t0
+    print(f"phase slice parallel: {sp['phase_seconds']:.1f} s")
     kern["launches"] = launches + host_launches + rest_launches + \
-        dec_launches + parse_launches + b_launches
+        dec_launches + parse_launches + b_launches + sp_launches
     kern["launches_by_phase"] = {"main path": launches,
                                  "host encoder": host_launches,
                                  "rest": rest_launches,
                                  "decoder": dec_launches,
                                  "decoder parse layer": parse_launches,
-                                 "decoder B / 8x8": b_launches}
+                                 "decoder B / 8x8": b_launches,
+                                 "slice parallel": sp_launches}
     print(f"main path summary: "
           f"{json.dumps({'card': card, 'configs': main_path})}")
     print(f"host encoder summary: "
@@ -1591,6 +1713,8 @@ def main():
           f"{json.dumps({'card': card, 'streams': parse_layer})}")
     print(f"decoder B / 8x8 summary: "
           f"{json.dumps({'card': card, 'streams': b_t8})}")
+    print(f"slice parallel summary: "
+          f"{json.dumps({'card': card, 'run': sp})}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kern]}))
     print(json.dumps({"ok": True, "device": {

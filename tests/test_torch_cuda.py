@@ -1,10 +1,11 @@
 """The port's CUDA kernels: their contract on the CPU, and their
 equality with the plain PyTorch versions on a GPU (with per-MB alpha /
 beta offsets and separate Cb / Cr QPs too); the host encoder and the API
-(CAVLC and CABAC), threaded simulcast, GOP parallelism, the processing
-functions and the decoder (CAVLC and CABAC, deblock idc 2, offsets,
-scaling lists) on a GPU against the same on the CPU, and the host C
-build on the GPU's machine.
+(CAVLC and CABAC), threaded simulcast, GOP parallelism, slice-parallel
+bands across the GPU and the CPU, the processing functions and the
+decoder (CAVLC and CABAC, deblock idc 2, offsets, scaling lists) on a
+GPU against the same on the CPU, and the host C build on the GPU's
+machine.
 
 This file imports nothing of JAX, so the card's tests also run on a
 machine without it:
@@ -209,9 +210,11 @@ def test_cuda_wrapper_rejects_misaligned_planes():
 HW, HH = 96, 64
 
 
-def _host_frames(n, scroll=0, seed=0):
+def _host_frames(n, scroll=0, seed=0, size=(HW, HH)):
     """Textured moving content (or, with scroll, content scrolling
-    `scroll` rows a frame with rows that repeat exactly)."""
+    `scroll` rows a frame with rows that repeat exactly), HW x HH unless
+    `size` says otherwise."""
+    HW, HH = size
     rng = np.random.default_rng(seed)
     tall = rng.integers(0, 256, (4 * HH, HW + 16))
     yy, xx = np.mgrid[0:4 * HH, 0:HW + 16]
@@ -379,6 +382,34 @@ def test_cuda_gop_parallel_matches_serial():
         iter(fr))
     assert got == DeviceSessionEncoder(cfg(), device="cpu").encode_stream(
         iter(fr))
+
+
+@pytest.mark.cuda
+def test_cuda_slice_parallel_across_devices_matches_cpu():
+    """Slice-parallel bands on ["cuda:0", "cpu", "cuda:0"]: the reference
+    planes go from the card to the CPU band and the CPU band's symbols
+    and recon back to the card, the one place where the gather crosses
+    devices on a one-GPU machine. The bytes equal ["cpu"] * 3's, the
+    merged frame is deblocked by the kernel on the card, once per frame,
+    and the DPB planes are equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from openh264_tpu_torch.encoder.config import EncoderConfig
+    from openh264_tpu_torch.parallel import SliceParallelEncoder
+    fr = _host_frames(4, seed=7, size=(160, 96))
+    res = {}
+    for name, devs in (("cpu", ["cpu"] * 3),
+                       ("mixed", ["cuda:0", "cpu", "cuda:0"])):
+        spe = SliceParallelEncoder(EncoderConfig(width=160, height=96, qp=28,
+                                                 num_slices=3), devs)
+        n0 = dc.launches
+        res[name] = ([spe.encode_frame(*f) for f in fr], spe.dpb,
+                     dc.launches - n0)
+    assert res["mixed"][0] == res["cpu"][0]
+    assert res["mixed"][2] == 4 and res["cpu"][2] == 0
+    for a, b in zip(res["mixed"][1], res["cpu"][1]):
+        for p, q in zip(a.planes, b.planes):
+            assert p.is_cuda and torch.equal(p.cpu(), q)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from .options import ENCODER_OPTION
 from .params import SEncParamBase, SEncParamExt, SEncoderStatistics
 from ..device import resolve_device
 from ..encoder.encoder import EncoderConfig, H264Encoder
+from ..utils import trace
 from ..utils.psnr import calc_psnr
 
 cmResultSuccess = 0
@@ -119,9 +120,20 @@ class CWelsH264SVCEncoder:
     def EncodeFrame(self, y, u, v) -> bytes:
         """Encode one YUV420 frame (host uint8 planes); returns Annex-B
         bytes (empty when rate control skips the frame, mirroring
-        videoFrameTypeSkip)."""
+        videoFrameTypeSkip). Its span, api.encode_frame (utils/trace.py),
+        carries the encoder's input index as its frame id and the attrs
+        idr and skipped."""
         if self._enc is None:
             raise RuntimeError("EncodeFrame before InitializeExt")
+        with trace.span("api.encode_frame",
+                        frame=self._enc.frame_count) as sp:
+            bs = self._encode_frame(y, u, v)
+            # an IDR restarts the coding index
+            sp.set(idr=bool(bs) and self._enc.coding_idx == 1,
+                   skipped=not bs)
+        return bs
+
+    def _encode_frame(self, y, u, v) -> bytes:
         t0 = time.perf_counter()
         if self._force_idr:
             self._enc.force_idr()
@@ -146,7 +158,8 @@ class CWelsH264SVCEncoder:
             # input (encoder_ext.cpp:3918-3940; WelsCalcPsnr, utils.cpp:43)
             for i, (src, rec) in enumerate(zip((y, u, v),
                                                self._enc.dpb[-1].planes)):
-                rec = rec[:src.shape[0], :src.shape[1]].cpu().numpy()
+                with trace.span("api.psnr_fetch"):
+                    rec = rec[:src.shape[0], :src.shape[1]].cpu().numpy()
                 self._psnr_sum[i] += calc_psnr(src, rec)
             self._psnr_n += 1
             st.fAveragePsnrY = self._psnr_sum[0] / self._psnr_n

@@ -32,7 +32,6 @@ are never concealed.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from types import SimpleNamespace
 
@@ -43,10 +42,12 @@ from ..bitstream import (BitReader, split_annexb, NAL_SPS, NAL_PPS, NAL_IDR,
                          NAL_SLICE, NAL_SLICE_EXT, NAL_SUBSET_SPS, NalUnit)
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..encoder.deblock_host import deblock_frame
+from ..utils import trace
 from .dpb import DPB, Picture, PocContext
 from .ec import ERROR_CON_DISABLE, ERROR_CON_SLICE_COPY, implement_error_con
 from .fmo import build_mb_to_slice_group, next_mb_lut
-from .framedata import FrameSymbols
+from .framedata import (FrameSymbols, MB_BSKIP, MB_I4x4, MB_I8x8,
+                        MB_I16x16, MB_IPCM, MB_PSKIP)
 from .params import parse_pps, parse_sps
 from .recon_batch import recon_frame_batch
 from .slice_dec import SliceDecodeContext, decode_slice_data_cavlc
@@ -54,8 +55,14 @@ from .slice_dec_cabac import decode_slice_data_cabac
 from .slicehdr import parse_slice_header, P_SLICE, B_SLICE
 from .wpred import build_slice_wp
 
-# the stages whose seconds H264Decoder(stage_times=True) adds up
+# the stages whose seconds H264Decoder(stage_times=True) adds up, each
+# the sum of its spans' times (decoder.parse is one span per slice)
 STAGES = ("parse", "inter_intra_recon", "deblock", "output", "conceal")
+STAGE_SPANS = {"parse": ("decoder.prepare", "decoder.parse"),
+               "inter_intra_recon": ("decoder.recon",),
+               "deblock": ("decoder.deblock",),
+               "output": ("decoder.output",),
+               "conceal": ("decoder.conceal",)}
 
 # Picture fields carried by export_state (the planes travel as numpy)
 _PIC_INTS = ("pic_id", "frame_num", "poc", "is_ref", "is_long_term",
@@ -90,9 +97,10 @@ class H264Decoder:
     reference's no-delay flow their output lands in the data call of a
     DecodeFrame2 pair and the follow-up flush call memsets it away
     (welsDecoderExt.cpp DecodeFrameNoDelay:695-733). stage_times: add
-    up the seconds of each stage of STAGES in `stage_seconds`,
-    synchronizing the device at each stage's end (off by default: it
-    costs the device's overlap with the host).
+    up the seconds of each stage of STAGES in `stage_seconds`, the
+    times of the stage's spans (STAGE_SPANS, utils/trace.py), each
+    ended by a synchronization of the device (off by default: it costs
+    the device's overlap with the host).
     """
 
     def __init__(self, device=DEFAULT_DEVICE, ec_mode: int | None = None,
@@ -114,17 +122,18 @@ class H264Decoder:
         self._reorder_q: list[DecodedFrame] = []
         self.stage_times = stage_times
         self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+        self._pictures = 0          # decode index, the pictures' frame id
 
-    def _lap(self, stage: str, t0: float) -> float:
-        """With stage_times, adds the seconds since t0 to `stage` (after
-        the device's queued work) and returns the new start."""
-        if not self.stage_times:
-            return t0
-        if self.device.type == "cuda":
+    def _stage_end(self) -> None:
+        """With stage_times, the last step inside a stage's span: wait
+        for the device's queued work."""
+        if self.stage_times and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        self.stage_seconds[stage] += t - t0
-        return t
+
+    def _stage_add(self, stage: str, sp) -> None:
+        """With stage_times, adds the time of the stage's span."""
+        if self.stage_times:
+            self.stage_seconds[stage] += sp.seconds
 
     @staticmethod
     def _is_au_boundary(prev_sh, sh) -> bool:
@@ -223,15 +232,16 @@ class H264Decoder:
     # them complete, and access units spanning calls stay pending.
     def feed_annexb(self, data: bytes) -> list[DecodedFrame]:
         from .nalbuf import split_complete
-        self._in_buf += bytes(data)
-        complete, self._in_buf = split_complete(self._in_buf)
-        out = []
-        if complete:
-            for nal in split_annexb(complete):
-                f = self._handle_nal(nal)
-                if f is not None:
-                    self._reorder_q.append(f)
-            out = self._release(eos=False)
+        with trace.span("decoder.feed"):
+            self._in_buf += bytes(data)
+            complete, self._in_buf = split_complete(self._in_buf)
+            out = []
+            if complete:
+                for nal in split_annexb(complete):
+                    f = self._handle_nal(nal)
+                    if f is not None:
+                        self._reorder_q.append(f)
+                out = self._release(eos=False)
         return out
 
     def flush(self) -> list[DecodedFrame]:
@@ -284,80 +294,79 @@ class H264Decoder:
         self.poc_ctx = PocContext(sps)
 
     def _decode_picture(self, slices) -> DecodedFrame | None:
-        t0 = time.perf_counter()
+        _, sh0, _ = slices[0]
+        with trace.span("decoder.picture", frame=self._pictures,
+                        idr=sh0.is_idr, slice_type=sh0.slice_type,
+                        entropy=("cabac" if sh0.pps.entropy_coding_mode
+                                 else "cavlc")):
+            self._pictures += 1
+            return self._decode_picture_in(slices)
+
+    def _decode_picture_in(self, slices) -> DecodedFrame | None:
         _, sh0, _ = slices[0]
         sps = sh0.sps
-        self._activate_sps(sps)
-        poc = self.poc_ctx.compute(sh0, sh0.nal.nal_ref_idc)
-        fs = FrameSymbols(sps.mb_width, sps.mb_height)
-        fs.mb_correct[:] = False
-        if any(sh.slice_type == B_SLICE for _, sh, _ in slices):
-            self._has_b_slices = True
-        if sh0.slice_type in (P_SLICE, B_SLICE) and \
-                not any(p.is_ref for p in self.dpb.pics):
-            self._recover_lost_ref(sps, sh0)
+        timed = self.stage_times
+        with trace.span("decoder.prepare", clock=timed) as sp:
+            self._activate_sps(sps)
+            poc = self.poc_ctx.compute(sh0, sh0.nal.nal_ref_idc)
+            fs = FrameSymbols(sps.mb_width, sps.mb_height)
+            fs.mb_correct[:] = False
+            if any(sh.slice_type == B_SLICE for _, sh, _ in slices):
+                self._has_b_slices = True
+            if sh0.slice_type in (P_SLICE, B_SLICE) and \
+                    not any(p.is_ref for p in self.dpb.pics):
+                self._recover_lost_ref(sps, sh0)
+            fs.wp_by_slice = []
+            fmo_next = None
+            if sh0.pps.num_slice_groups > 1:
+                # FMO: MBs iterate within their slice group (fmo.cpp
+                # FmoNextMb); the map may depend on the per-picture
+                # slice_group_change_cycle (map types 3-5)
+                fmo_next = next_mb_lut(build_mb_to_slice_group(
+                    sh0.pps, sps, sh0.slice_group_change_cycle))
+            self._stage_end()
+        self._stage_add("parse", sp)
         ref_pics: dict[int, Picture] = {}
-        fs.wp_by_slice = []
         last_l0 = None      # last slice's L0 for EC MV-copy modes
-        fmo_next = None
-        if sh0.pps.num_slice_groups > 1:
-            # FMO: MBs iterate within their slice group (fmo.cpp
-            # FmoNextMb); the map may depend on the per-picture
-            # slice_group_change_cycle (map types 3-5)
-            fmo_next = next_mb_lut(build_mb_to_slice_group(
-                sh0.pps, sps, sh0.slice_group_change_cycle))
         for si, (nal, sh, br) in enumerate(slices):
-            l0 = l1 = i0 = i1 = []
-            if sh.slice_type in (P_SLICE, B_SLICE):
-                mods = sh.ref_pic_list_modification
-                if sh.slice_type == P_SLICE:
-                    i0 = self.dpb.build_list_p(sh.frame_num)
-                else:
-                    i0, i1 = self.dpb.build_lists_b(poc, sh.frame_num)
-                l0 = self.dpb.reorder_list(i0, mods[0], sh.frame_num,
-                                           sh.num_ref_idx_l0_active)
-                if sh.slice_type == B_SLICE:
-                    l1 = self.dpb.reorder_list(i1, mods[1], sh.frame_num,
-                                               sh.num_ref_idx_l1_active)
-                for p in l0 + l1:
-                    if p is not None:
-                        ref_pics[p.pic_id] = p
-                last_l0 = l0
-            fs.wp_by_slice.append(build_slice_wp(sh, i0, i1, cur_poc=poc))
-            ctx = SliceDecodeContext(fs, sh, si, ref_list0=l0, ref_list1=l1,
-                                     poc=poc, fmo_next=fmo_next)
-            try:
-                if sh.pps.entropy_coding_mode:
-                    decode_slice_data_cabac(nal.rbsp, sh.header_bits, ctx)
-                else:
-                    decode_slice_data_cavlc(br, ctx)
-            except NotImplementedError:
-                raise               # out of scope: never concealed
-            except Exception as e:
-                if self.ec_mode == ERROR_CON_DISABLE:
-                    raise
-                from ..utils import wels_log, WELS_LOG_WARNING
-                wels_log(WELS_LOG_WARNING,
-                         f"slice {si} (first_mb {sh.first_mb_in_slice}) parse "
-                         f"error, concealing rest: {type(e).__name__}: {e}")
+            with trace.span("decoder.parse", clock=timed,
+                            bytes=len(nal.rbsp)) as sp:
+                last_l0 = self._parse_slice(fs, si, nal, sh, br, poc,
+                                            ref_pics, fmo_next, last_l0)
+                if trace.enabled():
+                    sp.set(mbs=int(np.count_nonzero(fs.slice_id == si)))
+                self._stage_end()
+            self._stage_add("parse", sp)
         complete = bool(fs.mb_correct.all())
-        t0 = self._lap("parse", t0)
-        st = recon_frame_batch(fs, ref_pics, sh0.pps.constrained_intra_pred,
-                               self.device)
-        t0 = self._lap("inter_intra_recon", t0)
-        planes = deblock_frame(st.y, st.u, st.v, fs)
-        t0 = self._lap("deblock", t0)
-        host = tuple(p.cpu().numpy() for p in planes)
-        t0 = self._lap("output", t0)
+        if trace.enabled():
+            _count_mb_classes(fs)
+        with trace.span("decoder.recon", clock=timed) as sp:
+            st = recon_frame_batch(fs, ref_pics,
+                                   sh0.pps.constrained_intra_pred,
+                                   self.device)
+            self._stage_end()
+        self._stage_add("inter_intra_recon", sp)
+        with trace.span("decoder.deblock", clock=timed) as sp:
+            planes = deblock_frame(st.y, st.u, st.v, fs)
+            self._stage_end()
+        self._stage_add("deblock", sp)
+        with trace.span("decoder.output", clock=timed) as sp:
+            host = tuple(p.cpu().numpy() for p in planes)
+            self._stage_end()
+        self._stage_add("output", sp)
         if not complete:
-            implement_error_con(self.ec_mode,
-                                SimpleNamespace(y=host[0], u=host[1],
-                                                v=host[2]), fs,
-                                fs.mb_correct, self.prev_decoded,
-                                sh0.is_idr, ref_list0=last_l0, cur_poc=poc)
-            # the DPB's planes must be the concealed ones
-            planes = tuple(torch.from_numpy(p).to(self.device) for p in host)
-            t0 = self._lap("conceal", t0)
+            with trace.span("decoder.conceal", clock=timed) as sp:
+                implement_error_con(self.ec_mode,
+                                    SimpleNamespace(y=host[0], u=host[1],
+                                                    v=host[2]), fs,
+                                    fs.mb_correct, self.prev_decoded,
+                                    sh0.is_idr, ref_list0=last_l0,
+                                    cur_poc=poc)
+                # the DPB's planes must be the concealed ones
+                planes = tuple(torch.from_numpy(p).to(self.device)
+                               for p in host)
+                self._stage_end()
+            self._stage_add("conceal", sp)
         # store into DPB (full uncropped planes; refs must keep MB grid)
         pic = Picture(0, *planes, frame_num=sh0.frame_num, poc=poc,
                       is_ref=sh0.nal.nal_ref_idc != 0, is_idr=sh0.is_idr,
@@ -375,6 +384,47 @@ class H264Decoder:
         return DecodedFrame(y, u, v, poc=poc, frame_num=sh0.frame_num,
                             is_idr=sh0.is_idr,
                             cvs=max(self._cvs_counter, 0))
+
+    def _parse_slice(self, fs, si, nal, sh, br, poc, ref_pics, fmo_next,
+                     last_l0):
+        """Builds slice si's reference lists and weights and parses its
+        MBs into fs (a parse error is concealed unless ec_mode is
+        ERROR_CON_DISABLE); returns the L0 list that EC's MV-copy modes
+        read."""
+        l0 = l1 = i0 = i1 = []
+        if sh.slice_type in (P_SLICE, B_SLICE):
+            mods = sh.ref_pic_list_modification
+            if sh.slice_type == P_SLICE:
+                i0 = self.dpb.build_list_p(sh.frame_num)
+            else:
+                i0, i1 = self.dpb.build_lists_b(poc, sh.frame_num)
+            l0 = self.dpb.reorder_list(i0, mods[0], sh.frame_num,
+                                       sh.num_ref_idx_l0_active)
+            if sh.slice_type == B_SLICE:
+                l1 = self.dpb.reorder_list(i1, mods[1], sh.frame_num,
+                                           sh.num_ref_idx_l1_active)
+            for p in l0 + l1:
+                if p is not None:
+                    ref_pics[p.pic_id] = p
+            last_l0 = l0
+        fs.wp_by_slice.append(build_slice_wp(sh, i0, i1, cur_poc=poc))
+        ctx = SliceDecodeContext(fs, sh, si, ref_list0=l0, ref_list1=l1,
+                                 poc=poc, fmo_next=fmo_next)
+        try:
+            if sh.pps.entropy_coding_mode:
+                decode_slice_data_cabac(nal.rbsp, sh.header_bits, ctx)
+            else:
+                decode_slice_data_cavlc(br, ctx)
+        except NotImplementedError:
+            raise               # out of scope: never concealed
+        except Exception as e:
+            if self.ec_mode == ERROR_CON_DISABLE:
+                raise
+            from ..utils import wels_log, WELS_LOG_WARNING
+            wels_log(WELS_LOG_WARNING,
+                     f"slice {si} (first_mb {sh.first_mb_in_slice}) parse "
+                     f"error, concealing rest: {type(e).__name__}: {e}")
+        return last_l0
 
     def _recover_lost_ref(self, sps, sh0) -> None:
         """P/B slice with an empty DPB (lost IDR): synthesize a ref so
@@ -545,6 +595,24 @@ class H264Decoder:
                                     dec.subset_sps_map)
             dec._pending.append((nal, sh, br))
         return dec
+
+
+# counters of decoder.picture: its MBs by class (framedata mb_type)
+_MB_CLASSES = (("skip", (MB_PSKIP, MB_BSKIP)), ("i4x4", (MB_I4x4,)),
+               ("i8x8", (MB_I8x8,)), ("i16x16", (MB_I16x16,)),
+               ("pcm", (MB_IPCM,)))
+
+
+def _count_mb_classes(fs: FrameSymbols) -> None:
+    """Counts the picture's decoded MBs by class on the open span; every
+    decoded MB of no other class is "inter"."""
+    t = fs.mb_type[fs.mb_type >= 0]
+    rest = len(t)
+    for name, types in _MB_CLASSES:
+        n = int(np.isin(t, types).sum())
+        trace.count(name, n)
+        rest -= n
+    trace.count("inter", rest)
 
 
 def write_yuv(frames, path):

@@ -40,6 +40,7 @@ import torch
 
 from ..ops.recon_torch import mc_chroma, mc_luma
 from ..ops.transform import idct4x4_add, idct8x8_add
+from ..utils import trace
 from .framedata import (INTRA_CLASSES, MB_B16x8, MB_B8x16, MB_I8x8,
                         FrameSymbols)
 from .recon_oracle import HostPlanes, ReconState, recon_intra_mb
@@ -130,23 +131,37 @@ def recon_frame_batch(fs: FrameSymbols, ref_pics: dict,
     """Reconstructs the correctly decoded MBs of `fs` into planes on
     `device`; the others stay 0 for error concealment. ref_pics: DPB
     pic_id -> dpb.Picture."""
-    from ..native import recon_intra_mbs_native
     st = ReconState(fs, device)
     mb_ok = fs.mb_correct
     inter_idx = np.nonzero((fs.mb_type >= 4) & mb_ok)[0].astype(np.int32)
     if len(inter_idx):
-        _recon_inter_batch(st, fs, ref_pics, inter_idx)
+        with trace.span("recon.inter"):
+            _recon_inter_batch(st, fs, ref_pics, inter_idx)
     # intra MBs in raster order (wavefront deps on recon pixels)
     intra_list = np.nonzero(np.isin(fs.mb_type, INTRA_CLASSES) & mb_ok)[0]
     if not len(intra_list):
         return st
+    with trace.span("recon.intra"):
+        _recon_intra(st, fs, intra_list, constrained, device,
+                     len(inter_idx) > 0)
+    return st
+
+
+def _recon_intra(st: ReconState, fs: FrameSymbols, intra_list,
+                 constrained: bool, device: torch.device,
+                 any_inter: bool) -> None:
+    """The intra MBs of intra_list in raster order on host copies of the
+    planes: one download (none when nothing was predicted on the
+    device), the host C or Python recon, one upload."""
+    from ..native import recon_intra_mbs_native
     if device.type == "cpu":          # the host code writes the tensors
         host = [p.numpy() for p in (st.y, st.u, st.v)]
     else:
         # one fetch (none when nothing was predicted on the device)
-        host = [p.cpu().numpy() if len(inter_idx) else
-                np.zeros(tuple(p.shape), np.uint8)
-                for p in (st.y, st.u, st.v)]
+        with trace.span("recon.fetch"):
+            host = [p.cpu().numpy() if any_inter else
+                    np.zeros(tuple(p.shape), np.uint8)
+                    for p in (st.y, st.u, st.v)]
     if (fs.mb_type[intra_list] == MB_I8x8).any():
         hp = HostPlanes(fs, *host)
         for idx in intra_list:
@@ -155,7 +170,6 @@ def recon_frame_batch(fs: FrameSymbols, ref_pics: dict,
         recon_intra_mbs_native(*host, fs, intra_list, constrained)
     if device.type != "cpu":          # and one upload
         st.y, st.u, st.v = (torch.from_numpy(p).to(device) for p in host)
-    return st
 
 
 def _block_params(fs: FrameSymbols, mb_u, blk):

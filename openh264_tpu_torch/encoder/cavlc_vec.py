@@ -212,10 +212,13 @@ def _mvp_p16x16(mv: np.ndarray, mb_w: int, mb_h: int, intra=None):
     return mvp, skip_mv
 
 
-def write_p_slice_tokens(out: dict, mb_w: int, mb_h: int):
-    """Token arrays for a whole P16x16 CAVLC slice body.
+# raster 4x4 block -> its 8x8 block
+_B8MAP = (np.arange(16) // 8) * 2 + (np.arange(16) % 4) // 2
 
-    Returns (vals, lens) flat arrays in stream order."""
+
+def _p_mb_modes(out: dict, mb_w: int, mb_h: int):
+    """Per MB of a P16x16 slice: (mvf [N, 2], luma, cdc, cac, intra,
+    cbp_luma, cbp_chroma, cbp, mvp, is_skip)."""
     n_mb = mb_w * mb_h
     mv = np.asarray(out["mv"], np.int32).reshape(mb_h, mb_w, 2)
     luma = np.asarray(out["luma_ac"], np.int32)             # [N,16,16]
@@ -226,11 +229,10 @@ def write_p_slice_tokens(out: dict, mb_w: int, mb_h: int):
              else np.zeros(n_mb, bool))
 
     # cbp per MB
-    b8map = ((np.arange(16) // 8) * 2 + (np.arange(16) % 4) // 2)  # raster->8x8
     nz_blk = luma.any(2)                                    # [N,16] raster
     cbp_luma = np.zeros(n_mb, np.int32)
     for b8 in range(4):
-        cbp_luma |= nz_blk[:, b8map == b8].any(1).astype(np.int32) << b8
+        cbp_luma |= nz_blk[:, _B8MAP == b8].any(1).astype(np.int32) << b8
     # I16x16 MBs: cbp_luma is all-or-nothing (carried in mb_type)
     cbp_luma = np.where(intra, np.where(nz_blk.any(1), 15, 0), cbp_luma)
     cbp_chroma = np.where(cac.reshape(n_mb, -1).any(1), 2,
@@ -241,6 +243,22 @@ def write_p_slice_tokens(out: dict, mb_w: int, mb_h: int):
                                intra=intra.reshape(mb_h, mb_w))
     mvf = mv.reshape(n_mb, 2)
     is_skip = (cbp == 0) & (mvf == skip_mv.reshape(n_mb, 2)).all(1) & ~intra
+    return (mvf, luma, cdc, cac, intra, cbp_luma, cbp_chroma, cbp, mvp,
+            is_skip)
+
+
+def p_skip_mask(out: dict, mb_w: int, mb_h: int) -> np.ndarray:
+    """[N] bool: the MBs that write_p_slice_tokens codes as P_Skip."""
+    return _p_mb_modes(out, mb_w, mb_h)[-1]
+
+
+def write_p_slice_tokens(out: dict, mb_w: int, mb_h: int):
+    """Token arrays for a whole P16x16 CAVLC slice body.
+
+    Returns (vals, lens) flat arrays in stream order."""
+    n_mb = mb_w * mb_h
+    (mvf, luma, cdc, cac, intra, cbp_luma, cbp_chroma, cbp, mvp,
+     is_skip) = _p_mb_modes(out, mb_w, mb_h)
 
     # skip runs: for each coded MB, number of skips since last coded
     coded_idx = np.nonzero(~is_skip)[0]
@@ -313,7 +331,7 @@ def write_p_slice_tokens(out: dict, mb_w: int, mb_h: int):
     tc_blk = np.count_nonzero(zz_all, axis=2)
     tc_blk_i16 = np.count_nonzero(zz_all[:, :, 1:], axis=2)
     tc_blk = np.where(intra[:, None], tc_blk_i16, tc_blk)
-    blk_coded = (cbp_luma[:, None] >> b8map[None, :]) & 1
+    blk_coded = (cbp_luma[:, None] >> _B8MAP[None, :]) & 1
     tc_blk = tc_blk * blk_coded * (~is_skip[:, None])
     nzc_l = tc_blk.reshape(mb_h, mb_w, 4, 4).transpose(0, 2, 1, 3).reshape(
         mb_h * 4, mb_w * 4)

@@ -37,6 +37,7 @@ import torch
 
 from ..oracle.deblock_bs import precompute_bs
 from ..tables import CHROMA_QP_TABLE
+from ..utils import trace
 from .deblock_torch import deblock_frame_auto
 
 
@@ -85,8 +86,11 @@ def deblock_frame(y, u, v, fs):
     MB aligned) as the oracle does for `fs`; returns the filtered
     (y, u, v). On CUDA the kernel filters y/u/v in place."""
     dev = y.device
-    BSV, BSH, qp, cqp, ao, bo = (None if a is None else
-                                 torch.from_numpy(a).to(dev)
-                                 for a in deblock_inputs(fs))
-    return deblock_frame_auto(y, u, v, BSV, BSH, qp, cqp, fs.mb_w, fs.mb_h,
-                              ao, bo)
+    with trace.span("deblock.bs"):
+        inputs = deblock_inputs(fs)
+    with trace.span("deblock.kernel"):
+        BSV, BSH, qp, cqp, ao, bo = (None if a is None else
+                                     torch.from_numpy(a).to(dev)
+                                     for a in inputs)
+        return deblock_frame_auto(y, u, v, BSV, BSH, qp, cqp, fs.mb_w,
+                                  fs.mb_h, ao, bo)

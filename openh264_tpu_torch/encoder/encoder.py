@@ -31,10 +31,11 @@ from ..decoder.mvpred import MvContext
 from ..device import resolve_device
 from ..tables import CHROMA_QP_TABLE, ZIGZAG_4x4, ZSCAN_TO_RASTER
 from ..tables.cavlc import CBP_INTER_INV, CBP_INTRA_INV
+from ..utils import trace
 from . import core_torch
 from .cabac_enc import CabacSliceWriter
 from .cavlc_enc import write_residual_block
-from .cavlc_vec import assemble_rbsp, write_p_slice_tokens
+from .cavlc_vec import assemble_rbsp, p_skip_mask, write_p_slice_tokens
 from .config import EncoderConfig
 from .core_np import pad_to_mb
 from .deblock_host import deblock_frame
@@ -51,9 +52,11 @@ _P_KEYS = ("mv", "luma_ac", "chroma_dc", "chroma_ac")
 
 def _fetch(out: dict, keys) -> dict:
     """The device tensors out[k] for k in keys as numpy arrays, in one
-    device-to-host copy; bool tensors come back as bool."""
+    device-to-host copy (the host's wait for the core: span
+    encoder.fetch); bool tensors come back as bool."""
     ts = [out[k] for k in keys]
-    flat = torch.cat([t.reshape(-1).to(torch.int32) for t in ts]).cpu()
+    with trace.span("encoder.fetch"):
+        flat = torch.cat([t.reshape(-1).to(torch.int32) for t in ts]).cpu()
     flat = flat.numpy()
     res, pos = {}, 0
     for k, t in zip(keys, ts):
@@ -274,7 +277,17 @@ class H264Encoder:
     def encode_frame(self, y: np.ndarray, u: np.ndarray,
                      v: np.ndarray) -> bytes:
         """Encode one frame (host uint8 planes); returns Annex-B bytes
-        (headers on IDR, b"" when rate control skips the frame)."""
+        (headers on IDR, b"" when rate control skips the frame). The
+        frame's span, encoder.frame (utils/trace.py), carries the input
+        index as its frame id, attrs idr and skipped, and counters of
+        the bits written and, on the one-slice path, of its MBs by
+        type."""
+        with trace.span("encoder.frame", frame=self.frame_count) as sp:
+            bs = self._encode_frame(y, u, v, sp)
+            sp.count("bits", 8 * len(bs))
+        return bs
+
+    def _encode_frame(self, y, u, v, sp) -> bytes:
         cfg = self.cfg
         yp = pad_to_mb(y)
         yd = self._upload(yp)
@@ -291,8 +304,10 @@ class H264Encoder:
         self._scroll_prev = self._prev_input
         self._prev_input = yd
         self.frame_count += 1
+        sp.set(idr=is_idr, skipped=False)
         if not is_idr and self.rc.should_skip():
             self.rc.skipped()
+            sp.set(skipped=True)
             return b""
         self._force_idr = False
 
@@ -342,6 +357,8 @@ class H264Encoder:
             nal = make_annexb_nal(2 if is_ref else 0, NAL_SLICE, rbsp)
             prefix = b""
             fs = self._frame_symbols_p(out)
+        if trace.enabled():
+            self._count_mbs(out, is_idr)
 
         recon = self._deblock(out, fs)
         if is_ref:
@@ -364,12 +381,32 @@ class H264Encoder:
         self.rc.update(8 * len(bs), self.qp, is_idr)
         return bs
 
+    def _count_mbs(self, out, is_idr: bool) -> None:
+        """Counts the frame's MBs by type on the open span (a one-slice
+        frame): i4 and i16 in an IDR; skip, inter and intra_p (I16x16
+        intra-in-P) in a P frame."""
+        n = self.cfg.mb_width * self.cfg.mb_height
+        if is_idr:
+            kind = out.get("kind")
+            i4 = 0 if kind is None else int(np.count_nonzero(
+                np.asarray(kind) == 0))
+            trace.count("i4", i4)
+            trace.count("i16", n - i4)
+            return
+        intra = int(np.count_nonzero(out["intra_mask"]))
+        skip = int(np.count_nonzero(p_skip_mask(
+            out, self.cfg.mb_width, self.cfg.mb_height)))
+        trace.count("skip", skip)
+        trace.count("intra_p", intra)
+        trace.count("inter", n - skip - intra)
+
     def _deblock(self, out, fs) -> tuple:
         """The frame's recon planes (device), deblocked unless the
         config turns the filter off."""
         recon = (out["recon_y"], out["recon_u"], out["recon_v"])
         if self.cfg.deblock_idc != 1:
-            recon = deblock_frame(*recon, fs)
+            with trace.span("encoder.deblock"):
+                recon = deblock_frame(*recon, fs)
         return recon
 
     # ------------------------------------------------------------------
@@ -417,17 +454,20 @@ class H264Encoder:
             ub = up[r0 * 8:r1 * 8]
             vb = vp[r0 * 8:r1 * 8]
             if is_idr:
-                d = core_torch.encode_i_frame(yb, ub, vb, self.qp, self.qp_c,
-                                              mb_w=cfg.mb_width, mb_h=bh)
+                with trace.span("encoder.dispatch", core="i"):
+                    d = core_torch.encode_i_frame(yb, ub, vb, self.qp,
+                                                  self.qp_c,
+                                                  mb_w=cfg.mb_width, mb_h=bh)
                 out = _fetch(d, _I_KEYS)
                 rbsp = self._write_i_slice(out, mb_h=bh,
                                            first_mb=r0 * cfg.mb_width)
                 nals.append(make_annexb_nal(3, NAL_IDR, rbsp))
             else:
-                d = core_torch.encode_p_frame(
-                    yb, ub, vb, ry, ru, rv, self.qp, self.qp_c,
-                    mb_w=cfg.mb_width, mb_h=bh, sr=cfg.search_range,
-                    row_off=r0 * 16)
+                with trace.span("encoder.dispatch", core="p"):
+                    d = core_torch.encode_p_frame(
+                        yb, ub, vb, ry, ru, rv, self.qp, self.qp_c,
+                        mb_w=cfg.mb_width, mb_h=bh, sr=cfg.search_range,
+                        row_off=r0 * 16)
                 out = _fetch(d, _P_KEYS)
                 out["intra_mask"] = np.zeros(cfg.mb_width * bh, bool)
                 rbsp = self._write_p_slice(out, is_ref, reorder, mb_h=bh,
@@ -671,15 +711,17 @@ class H264Encoder:
         cfg = self.cfg
         if cfg.enable_i4x4 and not cfg.entropy_cabac:
             from ..native import enc_intra_frame_native
-            out = enc_intra_frame_native(
-                *host, self.qp, self.qp_c,
-                int(core_torch.QP_COST_TABLE[np.clip(self.qp, 0, 51)]))
+            with trace.span("encoder.i4x4"):
+                out = enc_intra_frame_native(
+                    *host, self.qp, self.qp_c,
+                    int(core_torch.QP_COST_TABLE[np.clip(self.qp, 0, 51)]))
             for k in ("recon_y", "recon_u", "recon_v"):
                 out[k] = self._upload(out[k])
         else:
-            d = core_torch.encode_i_frame(*dev, self.qp, self.qp_c,
-                                          mb_w=cfg.mb_width,
-                                          mb_h=cfg.mb_height)
+            with trace.span("encoder.dispatch", core="i"):
+                d = core_torch.encode_i_frame(*dev, self.qp, self.qp_c,
+                                              mb_w=cfg.mb_width,
+                                              mb_h=cfg.mb_height)
             out = _fetch(d, _I_KEYS)
             for k in ("recon_y", "recon_u", "recon_v"):
                 out[k] = d[k]
@@ -687,6 +729,17 @@ class H264Encoder:
 
     def _write_i_slice(self, out, mb_h: int | None = None,
                        first_mb: int = 0) -> bytes:
+        """One I slice's RBSP: header and body (span encoder.write)."""
+        with trace.span("encoder.write", entropy=self._entropy) as sp:
+            rbsp = self._write_i_slice_rbsp(out, mb_h, first_mb)
+            sp.set(bits=8 * len(rbsp))
+        return rbsp
+
+    @property
+    def _entropy(self) -> str:
+        return "cabac" if self.cfg.entropy_cabac else "cavlc"
+
+    def _write_i_slice_rbsp(self, out, mb_h, first_mb) -> bytes:
         cfg = self.cfg
         mb_h = cfg.mb_height if mb_h is None else mb_h
         w = BitWriter()
@@ -1038,39 +1091,43 @@ class H264Encoder:
             flag, mv_y = detect_scroll(yp, self._scroll_prev)
             if flag and mv_y != 0:
                 extra_mv = np.array([0, 4 * mv_y], np.int32)
-        d = core_torch.encode_p_frame(
-            yp, up, vp, ry, ru, rv,
-            self.qp if mb_qp is None else mb_qp,
-            self.qp_c if mb_qp is None else mb_qp_c,
-            mb_w=mb_w, mb_h=mb_h, sr=cfg.search_range,
-            prev_skip_sad=prev_sad, prev_skip=prev_skip,
-            extra_mv=extra_mv)
-        # intra-in-P mode decision (parity: WelsMdIntraMb vs WelsMdInterMb,
-        # svc_base_layer_md.cpp:956/1858): the SATD intra proxy is biased
-        # by ~lambda; promoted skips stay inter; the chain-free demotion
-        # matches the device session's
-        intra_mask = torch.zeros(n_mb, dtype=torch.bool, device=dev)
-        if cfg.enable_intra_in_p and mb_qp is None:
-            lam = max(self.qp - 12, 1)
-            intra_mask = ((d["intra_cost_proxy"].to(torch.int64) + 8 * lam
-                           < d["inter_cost"].to(torch.int64))
-                          & ~d["skip_mask"])
-            intra_mask = core_torch.chainfree_intra_mask(intra_mask, mb_w,
-                                                         mb_h)
+        with trace.span("encoder.dispatch", core="p"):
+            d = core_torch.encode_p_frame(
+                yp, up, vp, ry, ru, rv,
+                self.qp if mb_qp is None else mb_qp,
+                self.qp_c if mb_qp is None else mb_qp_c,
+                mb_w=mb_w, mb_h=mb_h, sr=cfg.search_range,
+                prev_skip_sad=prev_sad, prev_skip=prev_skip,
+                extra_mv=extra_mv)
+            # intra-in-P mode decision (parity: WelsMdIntraMb vs
+            # WelsMdInterMb, svc_base_layer_md.cpp:956/1858): the SATD
+            # intra proxy is biased by ~lambda; promoted skips stay
+            # inter; the chain-free demotion matches the device session's
+            intra_mask = torch.zeros(n_mb, dtype=torch.bool, device=dev)
+            if cfg.enable_intra_in_p and mb_qp is None:
+                lam = max(self.qp - 12, 1)
+                intra_mask = ((d["intra_cost_proxy"].to(torch.int64)
+                               + 8 * lam < d["inter_cost"].to(torch.int64))
+                              & ~d["skip_mask"])
+                intra_mask = core_torch.chainfree_intra_mask(intra_mask,
+                                                             mb_w, mb_h)
         d["intra_mask"] = intra_mask
         keys = _P_KEYS + ("intra_mask",)
-        if bool(intra_mask.any()):
-            iout = core_torch.encode_i_frame(
-                yp, up, vp, self.qp, self.qp_c, mb_w=mb_w, mb_h=mb_h,
-                intra_mask=intra_mask,
-                init_recon=(d["recon_y"], d["recon_u"], d["recon_v"]))
-            for k in ("recon_y", "recon_u", "recon_v", "i16_mode",
-                      "chroma_mode", "luma_dc"):
-                d[k] = iout[k]
-            for k, dims in (("luma_ac", 2), ("chroma_dc", 2),
-                            ("chroma_ac", 3)):
-                m = intra_mask.reshape((-1,) + (1,) * dims)
-                d[k] = torch.where(m, iout[k], d[k])
+        with trace.span("encoder.fetch"):       # waits for the core
+            any_intra = bool(intra_mask.any())
+        if any_intra:
+            with trace.span("encoder.dispatch", core="intra_in_p"):
+                iout = core_torch.encode_i_frame(
+                    yp, up, vp, self.qp, self.qp_c, mb_w=mb_w, mb_h=mb_h,
+                    intra_mask=intra_mask,
+                    init_recon=(d["recon_y"], d["recon_u"], d["recon_v"]))
+                for k in ("recon_y", "recon_u", "recon_v", "i16_mode",
+                          "chroma_mode", "luma_dc"):
+                    d[k] = iout[k]
+                for k, dims in (("luma_ac", 2), ("chroma_dc", 2),
+                                ("chroma_ac", 3)):
+                    m = intra_mask.reshape((-1,) + (1,) * dims)
+                    d[k] = torch.where(m, iout[k], d[k])
             keys += ("i16_mode", "chroma_mode", "luma_dc")
         out = _fetch(d, keys)
         for k in ("recon_y", "recon_u", "recon_v", "skip_mask", "skip_sad"):
@@ -1088,7 +1145,16 @@ class H264Encoder:
                        mmco_ops=None, reorder_lt=None) -> bytes:
         """Slice header, then the CABAC body, or the whole-slice
         vectorised CAVLC body (cavlc_vec.py) packed by the host C bit
-        packer."""
+        packer (span encoder.write)."""
+        with trace.span("encoder.write", entropy=self._entropy) as sp:
+            rbsp = self._write_p_slice_rbsp(out, is_ref, reorder_abs_diff,
+                                            mb_h, first_mb, mmco_ops,
+                                            reorder_lt)
+            sp.set(bits=8 * len(rbsp))
+        return rbsp
+
+    def _write_p_slice_rbsp(self, out, is_ref, reorder_abs_diff, mb_h,
+                            first_mb, mmco_ops, reorder_lt) -> bytes:
         cfg = self.cfg
         mb_w = cfg.mb_width
         mb_h = cfg.mb_height if mb_h is None else mb_h

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 from collections import deque
 from dataclasses import dataclass
 
@@ -38,6 +37,7 @@ from ..bitstream import BitWriter, make_annexb_nal, NAL_SPS, NAL_PPS, \
     NAL_IDR, NAL_SLICE
 from ..device import resolve_device
 from ..tables import CHROMA_QP_TABLE
+from ..utils import trace
 from . import core_torch, entropy_torch, deblock_torch
 from .headers import write_pps, write_slice_header, write_sps
 from .ratectl import RateControl, RC_OFF_MODE
@@ -123,17 +123,21 @@ def _step_i(y, u, v, qp, qp_c, start_bit, mb_w, mb_h, do_deblock,
             max_bytes=MAX_BYTES):
     n_mb = mb_w * mb_h
     dev = y.device
-    out = core_torch.encode_i_frame(y, u, v, qp, qp_c, mb_w=mb_w, mb_h=mb_h)
-    av, al = entropy_torch.i_slice_tokens(out, mb_w, mb_h)
-    packed, nbits, ovf = entropy_torch.pack_tokens_device(
-        av, al, start_bit, max_bytes)
+    with trace.span("session.core"):
+        out = core_torch.encode_i_frame(y, u, v, qp, qp_c, mb_w=mb_w,
+                                        mb_h=mb_h)
+    with trace.span("session.entropy"):
+        av, al = entropy_torch.i_slice_tokens(out, mb_w, mb_h)
+        packed, nbits, ovf = entropy_torch.pack_tokens_device(
+            av, al, start_bit, max_bytes)
     ry, ru, rv = out["recon_y"], out["recon_u"], out["recon_v"]
     if do_deblock:
-        ry, ru, rv = _deblock_ms(
-            ry, ru, rv, _nz_blocks(out["luma_ac"], n_mb),
-            torch.ones(n_mb, dtype=torch.bool, device=dev),
-            torch.zeros((n_mb, 2), dtype=I32, device=dev), qp, qp_c,
-            mb_w, mb_h)
+        with trace.span("session.deblock"):
+            ry, ru, rv = _deblock_ms(
+                ry, ru, rv, _nz_blocks(out["luma_ac"], n_mb),
+                torch.ones(n_mb, dtype=torch.bool, device=dev),
+                torch.zeros((n_mb, 2), dtype=I32, device=dev), qp, qp_c,
+                mb_w, mb_h)
     return packed, nbits, ovf, ry, ru, rv, av, al
 
 
@@ -141,16 +145,19 @@ def _step_p(y, u, v, ry, ru, rv, prev_skip_sad, prev_skip,
             qp, qp_c, start_bit, mb_w, mb_h, sr, do_deblock, intra_in_p,
             max_bytes=MAX_BYTES):
     n_mb = mb_w * mb_h
-    sym, rec_y, rec_u, rec_v, skip_sad, skip_mask = _p_symbols(
-        y, u, v, ry, ru, rv, prev_skip_sad, prev_skip, qp, qp_c,
-        mb_w, mb_h, sr, intra_in_p)
-    av, al = entropy_torch.p_slice_tokens(sym, mb_w, mb_h)
-    packed, nbits, ovf = entropy_torch.pack_tokens_device(
-        av, al, start_bit, max_bytes)
+    with trace.span("session.core"):
+        sym, rec_y, rec_u, rec_v, skip_sad, skip_mask = _p_symbols(
+            y, u, v, ry, ru, rv, prev_skip_sad, prev_skip, qp, qp_c,
+            mb_w, mb_h, sr, intra_in_p)
+    with trace.span("session.entropy"):
+        av, al = entropy_torch.p_slice_tokens(sym, mb_w, mb_h)
+        packed, nbits, ovf = entropy_torch.pack_tokens_device(
+            av, al, start_bit, max_bytes)
     if do_deblock:
-        rec_y, rec_u, rec_v = _deblock_ms(
-            rec_y, rec_u, rec_v, _nz_blocks(sym["luma_ac"], n_mb),
-            sym["intra_mask"], sym["mv"], qp, qp_c, mb_w, mb_h)
+        with trace.span("session.deblock"):
+            rec_y, rec_u, rec_v = _deblock_ms(
+                rec_y, rec_u, rec_v, _nz_blocks(sym["luma_ac"], n_mb),
+                sym["intra_mask"], sym["mv"], qp, qp_c, mb_w, mb_h)
     return (packed, nbits, ovf, rec_y, rec_u, rec_v,
             skip_sad, skip_mask, av, al)
 
@@ -165,16 +172,19 @@ def _step_p_ms(y, u, v, ry, ru, rv, prev_skip_sad, prev_skip, qp, qp_c,
     """Multi-slice P step: full-frame core + per-band entropy +
     frame-wide deblock."""
     n_mb = mb_w * mb_h
-    sym, rec_y, rec_u, rec_v, skip_sad, skip_mask = _p_symbols(
-        y, u, v, ry, ru, rv, prev_skip_sad, prev_skip, qp, qp_c,
-        mb_w, mb_h, sr, intra_in_p, intra_allowed=intra_allowed)
-    packed, nbits, ovf, av, al = _tok_p_bands(
-        sym, idx, n_valid, start_bits, mb_w, B, n_bands, max_bytes)
+    with trace.span("session.core"):
+        sym, rec_y, rec_u, rec_v, skip_sad, skip_mask = _p_symbols(
+            y, u, v, ry, ru, rv, prev_skip_sad, prev_skip, qp, qp_c,
+            mb_w, mb_h, sr, intra_in_p, intra_allowed=intra_allowed)
+    with trace.span("session.entropy"):
+        packed, nbits, ovf, av, al = _tok_p_bands(
+            sym, idx, n_valid, start_bits, mb_w, B, n_bands, max_bytes)
     if do_deblock:
-        rec_y, rec_u, rec_v = _deblock_ms(
-            rec_y, rec_u, rec_v, _nz_blocks(sym["luma_ac"], n_mb),
-            sym["intra_mask"], sym["mv"], qp, qp_c, mb_w, mb_h,
-            zero_bsh_rows)
+        with trace.span("session.deblock"):
+            rec_y, rec_u, rec_v = _deblock_ms(
+                rec_y, rec_u, rec_v, _nz_blocks(sym["luma_ac"], n_mb),
+                sym["intra_mask"], sym["mv"], qp, qp_c, mb_w, mb_h,
+                zero_bsh_rows)
     return (packed, nbits, ovf, av, al, rec_y, rec_u, rec_v,
             skip_sad, skip_mask)
 
@@ -205,11 +215,13 @@ def _step_i_band(y, u, v, qp, qp_c, start_bit, r0, mb_w, band_h, max_bytes):
     yb = y[r0 * 16:(r0 + band_h) * 16]
     ub = u[r0 * 8:(r0 + band_h) * 8]
     vb = v[r0 * 8:(r0 + band_h) * 8]
-    out = core_torch.encode_i_frame(yb, ub, vb, qp, qp_c,
-                                    mb_w=mb_w, mb_h=band_h)
-    av, al = entropy_torch.i_slice_tokens(out, mb_w, band_h)
-    packed, nbits, ovf = entropy_torch.pack_tokens_device(
-        av, al, start_bit, max_bytes)
+    with trace.span("session.core"):
+        out = core_torch.encode_i_frame(yb, ub, vb, qp, qp_c,
+                                        mb_w=mb_w, mb_h=band_h)
+    with trace.span("session.entropy"):
+        av, al = entropy_torch.i_slice_tokens(out, mb_w, band_h)
+        packed, nbits, ovf = entropy_torch.pack_tokens_device(
+            av, al, start_bit, max_bytes)
     nz = _nz_blocks(out["luma_ac"], band_h * mb_w)
     return (packed, nbits, ovf, out["recon_y"], out["recon_u"],
             out["recon_v"], nz, av, al)
@@ -456,11 +468,14 @@ class DeviceSessionEncoder:
                 nzs.append(nz)
             rec_y, rec_u, rec_v = (torch.cat(p, 0) for p in zip(*recs))
             if cfg.deblock_idc != 1:
-                rec_y, rec_u, rec_v = _deblock_ms(
-                    rec_y, rec_u, rec_v, torch.cat(nzs, 0),
-                    torch.ones(n_mb, dtype=torch.bool, device=self.device),
-                    torch.zeros((n_mb, 2), dtype=I32, device=self.device),
-                    qp, qp_c, mb_w, mb_h, zero_rows)
+                with trace.span("session.deblock"):
+                    rec_y, rec_u, rec_v = _deblock_ms(
+                        rec_y, rec_u, rec_v, torch.cat(nzs, 0),
+                        torch.ones(n_mb, dtype=torch.bool,
+                                   device=self.device),
+                        torch.zeros((n_mb, 2), dtype=I32,
+                                    device=self.device),
+                        qp, qp_c, mb_w, mb_h, zero_rows)
             sk_sad, sk_map = self._zero_sad, self._zero_map
         else:
             ref = self._pick_ref(tid)
@@ -549,6 +564,11 @@ class DeviceSessionEncoder:
         batches of `fetch_batch` frames. Under rate control the bits
         feedback therefore lags by up to `fetch_batch` frames, with small
         first batches so the model gets feedback early.
+
+        Afterwards `last_stats` holds the call's "frames" and the summed
+        times of its spans (utils/trace.py) "launch_s" (session.launch,
+        the host's enqueue of each frame) and "fetch_s" (session.fetch,
+        the wait for each batch's packed bodies and their download).
         """
         q: queue.Queue = queue.Queue(maxsize=8)
         pin = self.device.type == "cuda"
@@ -569,51 +589,53 @@ class DeviceSessionEncoder:
         t.start()
         out: list[bytes] = []
         pending: list = []      # (position, rec)
-        stats = {"launch_s": 0.0, "fetch_s": 0.0, "finalize_s": 0.0,
-                 "wait_input_s": 0.0, "frames": 0}
+        stats = {"launch_s": 0.0, "fetch_s": 0.0, "frames": 0}
 
         def flush():
             if not pending:
                 return
-            t0 = time.perf_counter()
-            fw = self._fetch_window
-            sls = [sl for _pos, r in pending for sl in r["slices"]]
-            stackedh = torch.stack([sl["packed"][:fw] for sl in sls]).cpu(
-                ).numpy()
-            metah = torch.stack([torch.stack([sl["nbits"].to(I32),
-                                              sl["ovf"].to(I32)])
-                                 for sl in sls]).cpu().numpy()
-            need = [(int(m[0]) + 8) // 8 + 8 for m in metah]
-            want = max([self._fetch_window] + [2 * n for n in need])
-            self._fetch_window = min(self.max_body_bytes,
-                                     1 << (want - 1).bit_length())
-            stats["fetch_s"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            k = 0
-            for pos, r in pending:
-                bodies = []
-                for sl in r["slices"]:
-                    body = stackedh[k]
-                    if need[k] > fw and not metah[k, 1]:
-                        # body overran the fetch window: pull it whole
-                        body = sl["packed"].cpu().numpy()
-                    bodies.append((body, int(metah[k, 0]),
-                                   bool(metah[k, 1])))
-                    k += 1
-                out[pos] = self._finalize(r, bodies)
-            stats["finalize_s"] += time.perf_counter() - t0
+            with trace.span("session.fetch", clock=True,
+                            frames=len(pending)) as sp:
+                fw = self._fetch_window
+                sls = [sl for _pos, r in pending for sl in r["slices"]]
+                stackedh = torch.stack([sl["packed"][:fw] for sl in sls]
+                                       ).cpu().numpy()
+                metah = torch.stack([torch.stack([sl["nbits"].to(I32),
+                                                  sl["ovf"].to(I32)])
+                                     for sl in sls]).cpu().numpy()
+                need = [(int(m[0]) + 8) // 8 + 8 for m in metah]
+                want = max([self._fetch_window] + [2 * n for n in need])
+                self._fetch_window = min(self.max_body_bytes,
+                                         1 << (want - 1).bit_length())
+            stats["fetch_s"] += sp.seconds
+            with trace.span("session.finalize", frames=len(pending)):
+                k = 0
+                for pos, r in pending:
+                    bodies = []
+                    for sl in r["slices"]:
+                        body = stackedh[k]
+                        if need[k] > fw and not metah[k, 1]:
+                            # body overran the fetch window: pull it whole
+                            with trace.span("session.refetch"):
+                                body = sl["packed"].cpu().numpy()
+                        bodies.append((body, int(metah[k, 0]),
+                                       bool(metah[k, 1])))
+                        k += 1
+                    out[pos] = self._finalize(r, bodies)
             pending.clear()
 
         try:
             while True:
-                t0 = time.perf_counter()
-                host = q.get()
-                stats["wait_input_s"] += time.perf_counter() - t0
+                with trace.span("session.wait_input"):
+                    host = q.get()
                 if host is None:
                     break
-                t0 = time.perf_counter()
-                rec = self._launch(self._upload(host))
-                stats["launch_s"] += time.perf_counter() - t0
+                with trace.span("session.launch", clock=True,
+                                frame=self.frame_count) as sp:
+                    rec = self._launch(self._upload(host))
+                    sp.set(idr=rec is not None and rec["is_idr"],
+                           skipped=rec is None)
+                stats["launch_s"] += sp.seconds
                 stats["frames"] += 1
                 out.append(b"")       # placeholder (or an RC frame skip)
                 if rec is None:

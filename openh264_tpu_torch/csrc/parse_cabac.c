@@ -1,0 +1,1187 @@
+/* Host C of the port's decoder: the CABAC slice-data parser of I and P
+ * slices.
+ *
+ * Built with the host compiler by openh264_tpu_torch/_build.py and bound
+ * with ctypes by openh264_tpu_torch/native.py (parse_cabac_slice_native).
+ * Nothing here runs on the card.
+ *
+ * It parses one whole CABAC I or P slice, from the end of its header to
+ * end_of_slice_flag, into the FrameSymbols arrays, and mirrors the
+ * per-MB Python parser (decoder/slice_dec_cabac.py: decode_slice_mbs_cabac
+ * and its helpers, with the MV prediction of decoder/mvpred.py) statement
+ * for statement, as csrc/parse_cavlc.c mirrors decoder/slice_dec.py: the
+ * same arrays get the same values in the same order, so a slice that
+ * fails leaves what the Python parser leaves, and the engine ends at the
+ * same bit. The arithmetic engine is the spec's (9.3.3.2) bit for bit,
+ * the residual block loop that of csrc/cabac_residual.c, copied here so
+ * that one engine counts every bin.
+ *
+ * Scope: I and P slices without the 8x8 transform and without FMO, in
+ * raster order (decoder/slice_dec_cabac.py routes B slices, a PPS with
+ * transform_8x8_mode and FMO to its Python parser).
+ */
+
+#include <stdint.h>
+#include <stddef.h>
+#include <string.h>
+
+/* ctxIdx offsets (decoder/cabac.py, the spec's ctxIdx space) */
+enum {
+    CTX_MB_TYPE_I = 3, CTX_SKIP = 11, CTX_SUBMB_TYPE = 21, CTX_MVD = 40,
+    CTX_REF_NO = 54, CTX_DELTA_QP = 60, CTX_CIPR = 64, CTX_IPR = 68,
+    CTX_CBP = 73, CTX_CBF = 85, CTX_MAP = 105, CTX_LAST = 166,
+    CTX_ONE = 227, CTX_ABS = 232, N_CTX = 460
+};
+
+/* residual categories and their tables (decoder/cabac.py) */
+enum { I16_DC = 1, I16_AC = 2, LUMA_4x4 = 3, CHROMA_DC = 4, CHROMA_AC = 5 };
+static const int MAX_POS[6] = {0, 15, 14, 15, 3, 14};
+static const int MAX_C2[6] = {0, 4, 4, 4, 3, 4};
+static const int OFF_CBF[6] = {0, 0, 4, 8, 12, 16};
+static const int OFF_MAP[6] = {0, 0, 15, 29, 44, 47};
+static const int OFF_ONE[6] = {0, 0, 10, 20, 30, 39};
+
+/* mb_type classes (decoder/framedata.py) */
+enum { T_I4 = 0, T_I16 = 1, T_IPCM = 2, T_I8 = 3, T_P16 = 4, T_P168 = 5,
+       T_P816 = 6, T_P88 = 7, T_PSKIP = 8, T_BSKIP = 13 };
+
+static const int ZS2R[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13,
+                             10, 11, 14, 15};
+
+/* ---------- arithmetic engine (decoder/cabac.py CabacEngine) ----------
+ * The Python engine's offset is a Python int: a stream that breaks the
+ * engine's invariant (offset below range) makes it grow without bound,
+ * and handing it to csrc/cabac_residual.c, whose state is int64, then
+ * raises OverflowError. So the offset is kept here in 128 bits, exact
+ * while its magnitude is below OFF_SAT; beyond, where it only grows, its
+ * sign is all that decides a bin. Residual blocks run on a copy of the
+ * state in int64, as cabac_residual.c runs them. */
+typedef __int128 i128;
+#define OFF_SAT ((i128)1 << 120)
+
+typedef struct {
+    const uint8_t *data;
+    long long nbits, pos, range;
+    i128 offset;
+    long long bins;             /* decisions, bypass and terminate bins */
+    int32_t state[N_CTX], mps[N_CTX];
+    const int32_t *range_lps;   /* [64*4] */
+    const int32_t *state_trans; /* [64*2] (LPS, MPS) */
+} Eng;
+
+static inline int rd_bit(const uint8_t *data, long long nbits,
+                         long long *pos) {
+    int b = 0;
+    if (*pos < nbits)   /* past-the-end bits read as 0 */
+        b = (data[*pos >> 3] >> (7 - (*pos & 7))) & 1;
+    (*pos)++;
+    return b;
+}
+
+/* offset = (offset << 1) | the next bit, as a Python int */
+static inline void shift_in(Eng *e) {
+    int b = rd_bit(e->data, e->nbits, &e->pos);
+    if (e->offset < OFF_SAT && e->offset > -OFF_SAT)
+        e->offset = e->offset * 2 + b;
+}
+
+/* CabacEngine(data, bitpos): cabac_alignment_one_bit, then 9 bits */
+static void eng_start(Eng *e, long long bitpos) {
+    e->pos = bitpos;
+    while (e->pos & 7) e->pos++;
+    e->range = 510;
+    e->offset = 0;
+    for (int i = 0; i < 9; i++) shift_in(e);
+}
+
+/* CabacContexts: the m,n initialisation of every context */
+static void ctx_init(Eng *e, const int32_t *init_mn, int is_i, int idc,
+                     int qp) {
+    int model = is_i ? 0 : idc + 1;
+    for (int i = 0; i < N_CTX; i++) {
+        int m = init_mn[(i * 4 + model) * 2], n = init_mn[(i * 4 + model) * 2 + 1];
+        int pre = ((m * qp) >> 4) + n;
+        pre = pre < 1 ? 1 : (pre > 126 ? 126 : pre);
+        e->mps[i] = pre > 63;
+        e->state[i] = pre <= 63 ? 63 - pre : pre - 64;
+    }
+}
+
+static inline int decision(Eng *e, int idx) {
+    int state = e->state[idx];
+    long long lps = e->range_lps[state * 4 + ((e->range >> 6) & 3)];
+    int bit;
+    e->bins++;
+    e->range -= lps;
+    if (e->offset >= e->range) {
+        bit = 1 - e->mps[idx];
+        e->offset -= e->range;
+        e->range = lps;
+        if (state == 0) e->mps[idx] ^= 1;
+        e->state[idx] = e->state_trans[state * 2 + 0];
+    } else {
+        bit = e->mps[idx];
+        e->state[idx] = e->state_trans[state * 2 + 1];
+    }
+    while (e->range < 256) {
+        e->range <<= 1;
+        shift_in(e);
+    }
+    return bit;
+}
+
+static inline int bypass(Eng *e) {
+    e->bins++;
+    shift_in(e);
+    if (e->offset >= e->range) {
+        e->offset -= e->range;
+        return 1;
+    }
+    return 0;
+}
+
+static inline int terminate(Eng *e) {
+    e->bins++;
+    e->range -= 2;
+    if (e->offset >= e->range) return 1;   /* pos stays at the flush */
+    while (e->range < 256) {
+        e->range <<= 1;
+        shift_in(e);
+    }
+    return 0;
+}
+
+/* Exp-Golomb suffix of order k in bypass bins; -1 on a runaway code */
+static int exp_bypass(Eng *e, int k) {
+    int v = 0;
+    while (bypass(e)) {
+        v += 1 << k;
+        k++;
+        if (k > 16) return -1;
+    }
+    for (int i = k - 1; i >= 0; i--) v += bypass(e) << i;
+    return v;
+}
+
+/* The residual engine: csrc/cabac_residual.c's, whose int64 offset
+ * wraps (its shifts are done unsigned here, to the same bits). */
+typedef struct {
+    Eng *e;
+    long long pos, range, offset;
+} REng;
+
+static inline long long r_shift_in(REng *r) {
+    int b = rd_bit(r->e->data, r->e->nbits, &r->pos);
+    return (long long)(((unsigned long long)r->offset << 1) | (unsigned)b);
+}
+
+static inline int r_decision(REng *r, int idx) {
+    Eng *e = r->e;
+    int state = e->state[idx];
+    long long lps = e->range_lps[state * 4 + ((r->range >> 6) & 3)];
+    int bit;
+    e->bins++;
+    r->range -= lps;
+    if (r->offset >= r->range) {
+        bit = 1 - e->mps[idx];
+        r->offset -= r->range;
+        r->range = lps;
+        if (state == 0) e->mps[idx] ^= 1;
+        e->state[idx] = e->state_trans[state * 2 + 0];
+    } else {
+        bit = e->mps[idx];
+        e->state[idx] = e->state_trans[state * 2 + 1];
+    }
+    while (r->range < 256) {
+        r->range <<= 1;
+        r->offset = r_shift_in(r);
+    }
+    return bit;
+}
+
+static inline int r_bypass(REng *r) {
+    r->e->bins++;
+    r->offset = r_shift_in(r);
+    if (r->offset >= r->range) {
+        r->offset -= r->range;
+        return 1;
+    }
+    return 0;
+}
+
+static int r_exp_bypass(REng *r, int k) {
+    int v = 0;
+    while (r_bypass(r)) {
+        v += 1 << k;
+        k++;
+        if (k > 16) return -1;
+    }
+    for (int i = k - 1; i >= 0; i--) v += r_bypass(r) << i;
+    return v;
+}
+
+/* ---------- parser context ---------- */
+typedef struct {
+    Eng e;
+    /* tables */
+    const int64_t *dq4;           /* [6][52][16] effective (DequantTables.eff4) */
+    const int32_t *chroma_qp;     /* [52] */
+    const int32_t *zigzag;        /* [16] */
+    const int32_t *cbp_i16;       /* [6] */
+    const int32_t *l0_pic_ids;    /* [n_l0], -1 for a missing picture */
+    /* FrameSymbols */
+    int32_t *mb_type, *slice_id;
+    uint8_t *transform8;
+    int32_t *i16_mode, *chroma_mode, *i4_modes, *cbp, *qp;
+    int32_t *mv;                  /* [n][2][16][2] */
+    int8_t *refidx;               /* [n][2][4] */
+    int32_t *ref_pic;             /* [n][2][4] */
+    int8_t *pred_mode;            /* [n][4] */
+    int32_t *coeffs_l;            /* [n][16][16] */
+    int32_t *coeffs_c;            /* [n][2][4][16] */
+    int32_t *nzc_l;               /* [H4][W4] */
+    int32_t *nzc_c;               /* [2][H2][W2] */
+    int32_t *disable_deblock, *alpha_off, *beta_off;
+    uint8_t *mb_correct;
+    int32_t *i4_grid;             /* [H4][W4] */
+    int32_t *gmv;                 /* [2][H4][W4][2] */
+    int32_t *gref;                /* [2][H4][W4] */
+    uint8_t *gwritten;            /* [H4][W4] */
+    uint8_t *grefw;               /* [2][H4][W4] */
+    int32_t *cbf_dc;              /* [n] bits 0..2: I16 DC, Cb DC, Cr DC */
+    int32_t *gmvd;                /* [2][H4][W4][2] */
+    int8_t *gdirect;              /* [H4][W4] */
+    uint8_t *ipcm_buf;            /* [n][384] */
+    uint8_t *ipcm_flag;           /* [n] */
+    /* params */
+    int first_mb, mb_w, mb_h, w4, h4, slice_idx;
+    int num_ref_l0, n_l0, constrained, ddb_idc, a_off, b_off, coff0, coff1;
+    int cur_qp, last_dqp;
+    int err;                      /* 0 ok, 2 invalid (ValueError), 3 a QP
+                                     outside the tables (IndexError), 4
+                                     an offset past int64 (OverflowError) */
+    int residual_seen;            /* an MB reached its residual's QP */
+} PC;
+
+/* ---------- neighbours ---------- */
+static inline int mb_avail(PC *c, int mbx, int mby) {
+    if (mbx < 0 || mby < 0 || mbx >= c->mb_w || mby >= c->mb_h) return 0;
+    return c->slice_id[mby * c->mb_w + mbx] == c->slice_idx;
+}
+
+static inline void left_top(PC *c, int mb, int *left, int *top) {
+    int mbx = mb % c->mb_w, mby = mb / c->mb_w;
+    *left = mb_avail(c, mbx - 1, mby) ? mb - 1 : -1;
+    *top = mb_avail(c, mbx, mby - 1) ? mb - c->mb_w : -1;
+}
+
+static inline int is_intra_type(int t) { return t >= 0 && t <= 3; }
+
+static inline int i4_mode_at(PC *c, int bx, int by) {
+    if (bx < 0 || by < 0) return -1;
+    int mbx = bx / 4, mby = by / 4;
+    if (!mb_avail(c, mbx, mby)) return -1;
+    if (!is_intra_type(c->mb_type[mby * c->mb_w + mbx]))
+        return c->constrained ? -1 : 2;
+    int m = c->i4_grid[by * c->w4 + bx];
+    return m < 0 ? 2 : m;
+}
+
+static inline int pred_i4_mode(PC *c, int gx, int gy) {
+    int ma = i4_mode_at(c, gx - 1, gy);
+    int mb = i4_mode_at(c, gx, gy - 1);
+    if (ma < 0 || mb < 0) return 2;
+    return ma < mb ? ma : mb;
+}
+
+/* ---------- MV prediction over the global grids (mvpred.py) ---------- */
+static inline void blk_info(PC *c, int bx, int by, int lx, int cur_mb,
+                            int *avail, int *ref, int32_t mvout[2]) {
+    int w4 = c->w4, h4 = c->h4;
+    mvout[0] = mvout[1] = 0;
+    *avail = 0;
+    *ref = -1;
+    if (bx < 0 || by < 0 || bx >= w4 || by >= h4) return;
+    int mb = (by / 4) * c->mb_w + (bx / 4);
+    if (mb == cur_mb) {
+        if (!c->gwritten[by * w4 + bx]) return;
+    } else if (c->slice_id[mb] != c->slice_idx) {
+        return;
+    }
+    *avail = 1;
+    *ref = c->gref[lx * h4 * w4 + by * w4 + bx];
+    mvout[0] = c->gmv[(lx * h4 * w4 + by * w4 + bx) * 2];
+    mvout[1] = c->gmv[(lx * h4 * w4 + by * w4 + bx) * 2 + 1];
+}
+
+static inline int32_t med3(int32_t a, int32_t b, int32_t cc) {
+    int32_t mx = a > b ? a : b, mn = a < b ? a : b;
+    if (cc > mx) return mx;
+    if (cc < mn) return mn;
+    return cc;
+}
+
+static void pred_mv(PC *c, int gx, int gy, int pw, int ph, int lx,
+                    int ref_idx, int cur_mb, int32_t out[2]) {
+    int aa, ab, ac, ra, rb, rc;
+    int32_t mva[2], mvb[2], mvc[2];
+    blk_info(c, gx - 1, gy, lx, cur_mb, &aa, &ra, mva);
+    blk_info(c, gx, gy - 1, lx, cur_mb, &ab, &rb, mvb);
+    blk_info(c, gx + pw, gy - 1, lx, cur_mb, &ac, &rc, mvc);
+    if (!ac) blk_info(c, gx - 1, gy - 1, lx, cur_mb, &ac, &rc, mvc);
+    if (pw == 4 && ph == 2) {
+        if ((gy & 3) == 0) {
+            if (ab && rb == ref_idx) { out[0] = mvb[0]; out[1] = mvb[1]; return; }
+        } else {
+            if (aa && ra == ref_idx) { out[0] = mva[0]; out[1] = mva[1]; return; }
+        }
+    } else if (pw == 2 && ph == 4) {
+        if ((gx & 3) == 0) {
+            if (aa && ra == ref_idx) { out[0] = mva[0]; out[1] = mva[1]; return; }
+        } else {
+            if (ac && rc == ref_idx) { out[0] = mvc[0]; out[1] = mvc[1]; return; }
+        }
+    }
+    int ma = aa && ra == ref_idx, mb = ab && rb == ref_idx,
+        mc = ac && rc == ref_idx;
+    if (ma + mb + mc == 1) {
+        if (ma) { out[0] = mva[0]; out[1] = mva[1]; return; }
+        if (mb) { out[0] = mvb[0]; out[1] = mvb[1]; return; }
+        out[0] = mvc[0]; out[1] = mvc[1]; return;
+    }
+    if (!ab && !ac && aa) { out[0] = mva[0]; out[1] = mva[1]; return; }
+    out[0] = med3(aa ? mva[0] : 0, ab ? mvb[0] : 0, ac ? mvc[0] : 0);
+    out[1] = med3(aa ? mva[1] : 0, ab ? mvb[1] : 0, ac ? mvc[1] : 0);
+}
+
+static void pred_skip_mv(PC *c, int gx, int gy, int cur_mb, int32_t out[2]) {
+    int aa, ab, ra, rb;
+    int32_t mva[2], mvb[2];
+    blk_info(c, gx - 1, gy, 0, cur_mb, &aa, &ra, mva);
+    blk_info(c, gx, gy - 1, 0, cur_mb, &ab, &rb, mvb);
+    out[0] = out[1] = 0;
+    if (!aa || !ab) return;
+    if ((ra == 0 && mva[0] == 0 && mva[1] == 0) ||
+        (rb == 0 && mvb[0] == 0 && mvb[1] == 0)) return;
+    pred_mv(c, gx, gy, 4, 4, 0, 0, cur_mb, out);
+}
+
+static void set_partition(PC *c, int gx, int gy, int pw, int ph, int lx,
+                          int ref_idx, int32_t mv0, int32_t mv1) {
+    int w4 = c->w4, h4 = c->h4;
+    for (int y = gy; y < gy + ph; y++)
+        for (int x = gx; x < gx + pw; x++) {
+            c->gmv[(lx * h4 * w4 + y * w4 + x) * 2] = mv0;
+            c->gmv[(lx * h4 * w4 + y * w4 + x) * 2 + 1] = mv1;
+            c->gref[lx * h4 * w4 + y * w4 + x] = ref_idx;
+            c->gwritten[y * w4 + x] = 1;
+            c->grefw[lx * h4 * w4 + y * w4 + x] = 1;
+        }
+}
+
+/* ---------- per-MB grid helpers (slice_dec.py) ---------- */
+static void mb_common_init(PC *c, int mb) {
+    int mbx = mb % c->mb_w, mby = mb / c->mb_w;
+    c->slice_id[mb] = c->slice_idx;
+    c->disable_deblock[mb] = c->ddb_idc;
+    c->alpha_off[mb] = c->a_off;
+    c->beta_off[mb] = c->b_off;
+    for (int y = mby * 4; y < mby * 4 + 4; y++)
+        for (int x = mbx * 4; x < mbx * 4 + 4; x++)
+            c->gwritten[y * c->w4 + x] = 0;
+}
+
+static void finish_inter_mb(PC *c, int mb) {
+    int w4 = c->w4, h4 = c->h4;
+    int gy = (mb / c->mb_w) * 4, gx = (mb % c->mb_w) * 4;
+    for (int lx = 0; lx < 2; lx++)
+        for (int j = 0; j < 16; j++) {
+            int y = gy + j / 4, x = gx + j % 4;
+            c->mv[((mb * 2 + lx) * 16 + j) * 2] =
+                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2];
+            c->mv[((mb * 2 + lx) * 16 + j) * 2 + 1] =
+                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2 + 1];
+        }
+    for (int q = 0; q < 4; q++) {
+        int qy = gy + (q / 2) * 2, qx = gx + (q % 2) * 2;
+        int r0 = c->gref[qy * w4 + qx];
+        int r1 = c->gref[h4 * w4 + qy * w4 + qx];
+        int8_t s0 = (int8_t)r0, s1 = (int8_t)r1;
+        c->refidx[(mb * 2 + 0) * 4 + q] = s0;
+        c->refidx[(mb * 2 + 1) * 4 + q] = s1;
+        c->ref_pic[(mb * 2 + 0) * 4 + q] =
+            (r0 >= 0 && r0 < c->n_l0) ? c->l0_pic_ids[r0] : -1;
+        c->ref_pic[(mb * 2 + 1) * 4 + q] = -1;   /* P: list 1 is empty */
+        c->pred_mode[mb * 4 + q] =
+            (s0 >= 0 && s1 >= 0) ? 2 : (s1 >= 0 ? 1 : (s0 >= 0 ? 0 : -1));
+    }
+}
+
+static void mark_intra_grids(PC *c, int mb) {
+    int mbx = mb % c->mb_w, mby = mb / c->mb_w;
+    int w4 = c->w4, h4 = c->h4;
+    for (int lx = 0; lx < 2; lx++)
+        for (int y = mby * 4; y < mby * 4 + 4; y++)
+            for (int x = mbx * 4; x < mbx * 4 + 4; x++) {
+                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2] = 0;
+                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2 + 1] = 0;
+                c->gref[lx * h4 * w4 + y * w4 + x] = -1;
+            }
+    for (int y = mby * 4; y < mby * 4 + 4; y++)
+        for (int x = mbx * 4; x < mbx * 4 + 4; x++)
+            c->gwritten[y * w4 + x] = 1;
+}
+
+static void set_nzc_l(PC *c, int mb, int v) {
+    int mbx = mb % c->mb_w, mby = mb / c->mb_w;
+    for (int y = mby * 4; y < mby * 4 + 4; y++)
+        for (int x = mbx * 4; x < mbx * 4 + 4; x++)
+            c->nzc_l[y * c->w4 + x] = v;
+}
+
+static void set_nzc_c(PC *c, int mb, int v) {
+    int mbx = mb % c->mb_w, mby = mb / c->mb_w, w2 = c->mb_w * 2;
+    for (int comp = 0; comp < 2; comp++)
+        for (int y = mby * 2; y < mby * 2 + 2; y++)
+            for (int x = mbx * 2; x < mbx * 2 + 2; x++)
+                c->nzc_c[comp * (c->mb_h * 2) * w2 + y * w2 + x] = v;
+}
+
+/* ---------- syntax elements (CabacSliceDecoder) ---------- */
+static int skip_flag(PC *c, int mb) {
+    int left, top, inc = 0;
+    left_top(c, mb, &left, &top);
+    if (left >= 0 && c->mb_type[left] != T_PSKIP && c->mb_type[left] != T_BSKIP)
+        inc++;
+    if (top >= 0 && c->mb_type[top] != T_PSKIP && c->mb_type[top] != T_BSKIP)
+        inc++;
+    return decision(&c->e, CTX_SKIP + inc);
+}
+
+/* raw intra mb_type 0..25 of an I slice */
+static int mb_type_i_slice(PC *c, int mb) {
+    Eng *e = &c->e;
+    int left, top, inc = 0;
+    left_top(c, mb, &left, &top);
+    if (left >= 0 && c->mb_type[left] != T_I4 && c->mb_type[left] != T_I8)
+        inc++;
+    if (top >= 0 && c->mb_type[top] != T_I4 && c->mb_type[top] != T_I8)
+        inc++;
+    int base = CTX_MB_TYPE_I;
+    if (!decision(e, base + inc)) return 0;
+    if (terminate(e)) return 25;
+    int v = 1 + 12 * decision(e, base + 3);
+    if (decision(e, base + 4)) {
+        v += 4;
+        if (decision(e, base + 5)) v += 4;
+    }
+    v += decision(e, base + 6) << 1;
+    v += decision(e, base + 7);
+    return v;
+}
+
+/* the intra suffix inside a P mb_type */
+static int intra_mb_type_suffix(PC *c, int base) {
+    Eng *e = &c->e;
+    if (!decision(e, base)) return 0;
+    if (terminate(e)) return 25;
+    int v = 1 + 12 * decision(e, base + 1);
+    if (decision(e, base + 2)) {
+        v += 4;
+        if (decision(e, base + 2)) v += 4;
+    }
+    v += decision(e, base + 3) << 1;
+    v += decision(e, base + 3);
+    return v;
+}
+
+/* raw P mb_type: 0..3 inter, 5 + the intra mb_type */
+static int mb_type_p_slice(PC *c) {
+    Eng *e = &c->e;
+    if (decision(e, CTX_SKIP + 3))
+        return 5 + intra_mb_type_suffix(c, CTX_SKIP + 6);
+    if (decision(e, CTX_SKIP + 4))
+        return decision(e, CTX_SKIP + 6) ? 1 : 2;
+    return decision(e, CTX_SKIP + 5) ? 3 : 0;
+}
+
+static int sub_mb_type_p(PC *c) {
+    Eng *e = &c->e;
+    if (decision(e, CTX_SUBMB_TYPE)) return 0;
+    if (decision(e, CTX_SUBMB_TYPE + 1))
+        return 3 - decision(e, CTX_SUBMB_TYPE + 2);
+    return 1;
+}
+
+/* -1: use the predicted mode, else rem 0..7 */
+static int intra4x4_pred_mode(PC *c) {
+    Eng *e = &c->e;
+    if (decision(e, CTX_IPR)) return -1;
+    int v = decision(e, CTX_IPR + 1);
+    v |= decision(e, CTX_IPR + 1) << 1;
+    v |= decision(e, CTX_IPR + 1) << 2;
+    return v;
+}
+
+static int chroma_ctx_ok(PC *c, int n) {
+    int t = c->mb_type[n];
+    return t != T_IPCM && is_intra_type(t) && c->chroma_mode[n] > 0 &&
+           c->chroma_mode[n] <= 3;
+}
+
+static int intra_chroma_pred_mode(PC *c, int mb) {
+    Eng *e = &c->e;
+    int left, top, inc = 0;
+    left_top(c, mb, &left, &top);
+    if (left >= 0 && chroma_ctx_ok(c, left)) inc++;
+    if (top >= 0 && chroma_ctx_ok(c, top)) inc++;
+    if (!decision(e, CTX_CIPR + inc)) return 0;
+    if (!decision(e, CTX_CIPR + 3)) return 1;
+    return 2 + decision(e, CTX_CIPR + 3);
+}
+
+/* a neighbour block's (ref_idx > 0) for the ref_idx context */
+static int ref_ngb(PC *c, int mb, int nx, int ny) {
+    if (nx < 0 || ny < 0) return 0;
+    int nmb = (ny / 4) * c->mb_w + (nx / 4);
+    if (nmb == mb) {
+        if (!c->grefw[ny * c->w4 + nx]) return 0;
+    } else {
+        if (c->slice_id[nmb] != c->slice_id[mb]) return 0;
+        if (c->mb_type[nmb] == T_IPCM) return 0;
+    }
+    return c->gref[ny * c->w4 + nx] > 0;
+}
+
+/* clamp a ref_idx to one of list 0's pictures, else ref 0 */
+static int clamp_ref(PC *c, int r) {
+    return (r >= 0 && r < c->n_l0 && c->l0_pic_ids[r] >= 0) ? r : 0;
+}
+
+static int ref_idx(PC *c, int mb, int gx, int gy) {
+    Eng *e = &c->e;
+    if (c->num_ref_l0 <= 1) return 0;
+    int inc = ref_ngb(c, mb, gx - 1, gy) + 2 * ref_ngb(c, mb, gx, gy - 1);
+    if (!decision(e, CTX_REF_NO + inc)) return 0;
+    if (!decision(e, CTX_REF_NO + 4)) return clamp_ref(c, 1);
+    int v = 2;
+    while (decision(e, CTX_REF_NO + 5)) {
+        v++;
+        if (v > 32) { c->err = 2; return 0; }   /* runaway ref_idx */
+    }
+    return clamp_ref(c, v);
+}
+
+static void note_ref(PC *c, int gx, int gy, int pw, int ph, int ref) {
+    for (int y = gy; y < gy + ph; y++)
+        for (int x = gx; x < gx + pw; x++) {
+            c->gref[y * c->w4 + x] = ref;
+            c->grefw[y * c->w4 + x] = 1;
+        }
+}
+
+static long long amvd(PC *c, int mb, int comp, int nx, int ny) {
+    if (nx < 0 || ny < 0) return 0;
+    int nmb = (ny / 4) * c->mb_w + (nx / 4);
+    if (nmb == mb) {
+        if (!c->gwritten[ny * c->w4 + nx]) return 0;
+    } else if (c->slice_id[nmb] != c->slice_id[mb]) {
+        return 0;
+    }
+    if (c->gref[ny * c->w4 + nx] < 0) return 0;
+    long long v = c->gmvd[(ny * c->w4 + nx) * 2 + comp];
+    return v < 0 ? -v : v;
+}
+
+/* list 0 mvd component; c->err on a runaway code */
+static int32_t mvd(PC *c, int mb, int comp, int gx, int gy) {
+    Eng *e = &c->e;
+    int base = CTX_MVD + comp * 7;
+    long long s = amvd(c, mb, comp, gx - 1, gy) + amvd(c, mb, comp, gx, gy - 1);
+    int inc = s < 3 ? 0 : (s > 32 ? 2 : 1);
+    if (!decision(e, base + inc)) return 0;
+    /* UEG3 of |mvd| - 1 (CabacEngine.ueg_mv at base + 3) */
+    static const int BIN_CTX[8] = {0, 1, 2, 3, 3, 3, 3, 3};
+    int v = 0;
+    if (decision(e, base + 3)) {
+        int cnt = 1, bit;
+        for (;;) {
+            bit = decision(e, base + 3 + BIN_CTX[cnt < 7 ? cnt : 7]);
+            v++;
+            cnt++;
+            if (bit == 0 || cnt == 8) break;
+        }
+        if (bit != 0) {
+            int g = exp_bypass(e, 3);
+            if (g < 0) { c->err = 2; return 0; }
+            v += g + 1;
+        }
+    }
+    v += 1;
+    if (bypass(e)) v = -v;
+    return v;
+}
+
+static int cbp_ctx(PC *c, int mb) {
+    Eng *e = &c->e;
+    int left, top;
+    left_top(c, mb, &left, &top);
+    int lcbp = left >= 0 ? c->cbp[left] : 0;
+    int tcbp = top >= 0 ? c->cbp[top] : 0;
+    int lok = left >= 0 && c->mb_type[left] != T_IPCM;
+    int tok = top >= 0 && c->mb_type[top] != T_IPCM;
+    int btop0 = tok && (tcbp & 4) == 0, btop1 = tok && (tcbp & 8) == 0;
+    int aleft0 = lok && (lcbp & 2) == 0, aleft1 = lok && (lcbp & 8) == 0;
+    int b0, b1, b2, b3, cbp;
+    b0 = decision(e, CTX_CBP + aleft0 + (btop0 << 1));
+    b1 = decision(e, CTX_CBP + (!b0) + (btop1 << 1));
+    b2 = decision(e, CTX_CBP + aleft1 + ((!b0) << 1));
+    b3 = decision(e, CTX_CBP + (!b2) + ((!b1) << 1));
+    cbp = b0 | (b1 << 1) | (b2 << 2) | (b3 << 3);
+    int ib = top >= 0 && (c->mb_type[top] == T_IPCM || (c->cbp[top] >> 4));
+    int ia = left >= 0 && (c->mb_type[left] == T_IPCM || (c->cbp[left] >> 4));
+    if (decision(e, CTX_CBP + 4 + ia + (ib << 1))) {
+        ib = top >= 0 && (c->mb_type[top] == T_IPCM || (c->cbp[top] >> 4) == 2);
+        ia = left >= 0 && (c->mb_type[left] == T_IPCM ||
+                           (c->cbp[left] >> 4) == 2);
+        cbp |= 1 << (4 + decision(e, CTX_CBP + 8 + ia + (ib << 1)));
+    }
+    return cbp;
+}
+
+/* mb_qp_delta; c->err on a runaway code */
+static int delta_qp(PC *c) {
+    Eng *e = &c->e;
+    int dq = 0;
+    if (decision(e, CTX_DELTA_QP + (c->last_dqp != 0))) {
+        int u = 0;
+        if (decision(e, CTX_DELTA_QP + 2)) {
+            u = 1;
+            while (decision(e, CTX_DELTA_QP + 3)) {
+                u++;
+                if (u > 104) { c->err = 2; return 0; }
+            }
+        }
+        int v = u + 1;
+        dq = (v + 1) >> 1;
+        if ((v & 1) == 0) dq = -dq;
+    }
+    c->last_dqp = dq;
+    return dq;
+}
+
+/* a luma (grid nzc_l, scale 4) or chroma (nzc_c[comp], scale 2) block's
+ * coded state for coded_block_flag: -1 unavailable, else 0 or 1 */
+static int blk_nz(PC *c, int mb, int luma, int comp, int nx, int ny) {
+    if (nx < 0 || ny < 0) return -1;
+    int scale = luma ? 4 : 2;
+    int nmb = (ny / scale) * c->mb_w + (nx / scale);
+    if (nmb != mb && c->slice_id[nmb] != c->slice_id[mb]) return -1;
+    if (nmb != mb && c->mb_type[nmb] == T_IPCM) return 1;
+    if (luma) return c->nzc_l[ny * c->w4 + nx] != 0;
+    int w2 = c->mb_w * 2;
+    return c->nzc_c[comp * (c->mb_h * 2) * w2 + ny * w2 + nx] != 0;
+}
+
+/* coded_block_flag; for the DC categories dc_bit 0 (I16 DC), 1, 2 (Cb,
+ * Cr DC) */
+static int cbf(PC *c, int mb, int prop, int gx, int gy, int comp,
+               int dc_bit) {
+    int left, top;
+    left_top(c, mb, &left, &top);
+    int na = is_intra_type(c->mb_type[mb]), nb = na;
+    if (prop == I16_DC || prop == CHROMA_DC) {
+        if (top >= 0)
+            nb = c->mb_type[top] == T_IPCM || ((c->cbf_dc[top] >> dc_bit) & 1);
+        if (left >= 0)
+            na = c->mb_type[left] == T_IPCM || ((c->cbf_dc[left] >> dc_bit) & 1);
+    } else {
+        int luma = prop == I16_AC || prop == LUMA_4x4;
+        int va = blk_nz(c, mb, luma, comp, gx - 1, gy);
+        int vb = blk_nz(c, mb, luma, comp, gx, gy - 1);
+        if (va >= 0) na = va;
+        if (vb >= 0) nb = vb;
+    }
+    int bit = decision(&c->e, CTX_CBF + OFF_CBF[prop] + na + (nb << 1));
+    if (bit && (prop == I16_DC || prop == CHROMA_DC))
+        c->cbf_dc[mb] |= 1 << dc_bit;
+    return bit;
+}
+
+/* the significance map and levels of one block of category prop, in
+ * scan order (csrc/cabac_residual.c); returns the coefficient count, or
+ * -1 with c->err: 2 on a runaway code, 4 on an offset that int64 does
+ * not hold (where the Python parser's handoff raises OverflowError) */
+static int residual_levels(PC *c, int prop, int32_t *sig) {
+    Eng *e = &c->e;
+    if (e->offset > INT64_MAX || e->offset < INT64_MIN) {
+        c->err = 4;
+        return -1;
+    }
+    REng r = {e, e->pos, e->range, (long long)e->offset};
+    int n = MAX_POS[prop] + 1;
+    int map_base = CTX_MAP + OFF_MAP[prop], last_base = CTX_LAST + OFF_MAP[prop];
+    int one_base = CTX_ONE + OFF_ONE[prop], abs_base = CTX_ABS + OFF_ONE[prop];
+    int maxc2 = MAX_C2[prop];
+    int i, ncoef = 0, ended = 0;
+    for (i = 0; i < n; i++) sig[i] = 0;
+    for (i = 0; i < n - 1; i++) {
+        if (r_decision(&r, map_base + i)) {
+            sig[i] = 1;
+            ncoef++;
+            if (r_decision(&r, last_base + i)) {
+                ended = 1;
+                break;
+            }
+        }
+    }
+    if (!ended) {
+        sig[n - 1] = 1;
+        ncoef++;
+    }
+    int c1 = 1, c2 = 0;
+    for (i = n - 1; i >= 0; i--) {
+        if (!sig[i]) continue;
+        int v = 1 + r_decision(&r, one_base + c1);
+        if (v == 2) {
+            /* UEG0 continuation of coeff_abs_level_minus1 */
+            if (r_decision(&r, abs_base + c2)) {
+                int add = 0, cnt = 1, bit;
+                for (;;) {
+                    bit = r_decision(&r, abs_base + c2);
+                    add += 1;
+                    cnt += 1;
+                    if (bit == 0 || cnt == 13) break;
+                }
+                if (bit != 0) {
+                    int g = r_exp_bypass(&r, 0);
+                    if (g < 0) { c->err = 2; return -1; }
+                    add += g + 1;
+                }
+                v += add;
+            }
+            c2 = c2 + 1 > maxc2 ? maxc2 : c2 + 1;
+            c1 = 0;
+        } else if (c1) {
+            c1 = c1 + 1 > 4 ? 4 : c1 + 1;
+        }
+        if (r_bypass(&r)) v = -v;
+        sig[i] = v;
+    }
+    e->pos = r.pos;
+    e->range = r.range;
+    e->offset = r.offset;
+    return ncoef;
+}
+
+/* the luma dequant row of a QP as numpy indexes it: a negative QP
+ * counts from the end, one outside -52..51 is c->err 3 */
+static const int64_t *luma_dq(PC *c, int intra, int qp) {
+    if (qp < -52 || qp > 51) { c->err = 3; return NULL; }
+    return c->dq4 + (intra ? 0 : 3) * 52 * 16 + (qp < 0 ? qp + 52 : qp) * 16;
+}
+
+static inline int32_t wrap16(int64_t x) {
+    return (int32_t)(int16_t)(x & 0xFFFF);
+}
+
+/* dequantise a 4x4 block of levels in raster order into dst (all 16
+ * positions; position 0 keeps dst[0] when keep_dc) */
+static void dequant4(const int64_t *dq, const int32_t *blkc, int32_t *dst,
+                     int keep_dc) {
+    for (int p = keep_dc; p < 16; p++)
+        dst[p] = (int32_t)((blkc[p] * dq[p] + 8) >> 4);
+}
+
+/* the residual of one MB and its QP (_store_mb_residual_cabac) */
+static int store_residual(PC *c, int mb, int cbp, int is_i16) {
+    int mbx = mb % c->mb_w, mby = mb / c->mb_w;
+    int w4 = c->w4, w2 = c->mb_w * 2;
+    int t = c->mb_type[mb];
+    int intra = t == T_I4 || t == T_I16 || t == T_I8;
+    if (is_i16 || cbp) {
+        int delta = delta_qp(c);
+        if (c->err) return -1;
+        if (delta) {
+            int q = (c->cur_qp + delta + 52) % 52;
+            c->cur_qp = q < 0 ? q + 52 : q;
+        }
+    } else {
+        c->last_dqp = 0;
+    }
+    c->qp[mb] = c->cur_qp;
+    c->residual_seen = 1;
+    int qp = c->cur_qp, qp_c[2];
+    for (int k = 0; k < 2; k++) {
+        int q = qp + (k == 0 ? c->coff0 : c->coff1);
+        qp_c[k] = c->chroma_qp[q < 0 ? 0 : (q > 51 ? 51 : q)];
+    }
+    int32_t sig[16], blkc[16];
+    int tc;
+
+    if (is_i16 && cbf(c, mb, I16_DC, 0, 0, 0, 0)) {
+        if (residual_levels(c, I16_DC, sig) < 0) return -1;
+        int64_t dc[16], tmp[16];
+        for (int k = 0; k < 16; k++) dc[c->zigzag[k]] = sig[k];
+        /* luma_dc_dequant_ihadamard: rows, then columns */
+        for (int r = 0; r < 4; r++) {
+            int64_t a = dc[r * 4], b = dc[r * 4 + 1], cc = dc[r * 4 + 2],
+                    d = dc[r * 4 + 3];
+            tmp[r * 4] = a + b + cc + d;
+            tmp[r * 4 + 1] = a + b - cc - d;
+            tmp[r * 4 + 2] = a - b - cc + d;
+            tmp[r * 4 + 3] = a - b + cc - d;
+        }
+        const int64_t *dq_dc = luma_dq(c, 1, qp);
+        if (!dq_dc) return -1;
+        int64_t qmul = dq_dc[0];
+        for (int col = 0; col < 4; col++) {
+            int64_t a = tmp[col], b = tmp[4 + col], cc = tmp[8 + col],
+                    d = tmp[12 + col];
+            int64_t o[4] = {a + b + cc + d, a + b - cc - d, a - b - cc + d,
+                            a - b + cc - d};
+            for (int r = 0; r < 4; r++)
+                c->coeffs_l[(mb * 16 + r * 4 + col) * 16] =
+                    wrap16((o[r] * qmul + 32) >> 6);
+        }
+    }
+
+    for (int k = 0; k < 16; k++) {
+        int raster = ZS2R[k];
+        int bx = raster % 4, by = raster / 4;
+        int gx = mbx * 4 + bx, gy = mby * 4 + by;
+        int blk8 = (by >> 1) * 2 + (bx >> 1);
+        if (!(cbp & (1 << blk8))) {
+            c->nzc_l[gy * w4 + gx] = 0;
+            continue;
+        }
+        int prop = is_i16 ? I16_AC : LUMA_4x4;
+        if (cbf(c, mb, prop, gx, gy, 0, 0)) {
+            if ((tc = residual_levels(c, prop, sig)) < 0) return -1;
+            const int64_t *dq_l = luma_dq(c, intra, qp);
+            if (!dq_l) return -1;
+            memset(blkc, 0, sizeof(blkc));
+            if (is_i16)
+                for (int j = 0; j < 15; j++) blkc[c->zigzag[j + 1]] = sig[j];
+            else
+                for (int j = 0; j < 16; j++) blkc[c->zigzag[j]] = sig[j];
+            dequant4(dq_l, blkc, c->coeffs_l + (mb * 16 + raster) * 16,
+                     is_i16);
+            c->nzc_l[gy * w4 + gx] = tc;
+        } else {
+            c->nzc_l[gy * w4 + gx] = 0;    /* an I16 block keeps its DC */
+        }
+    }
+
+    if (cbp & 0x30) {
+        for (int comp = 0; comp < 2; comp++) {
+            if (!cbf(c, mb, CHROMA_DC, 0, 0, 0, 1 + comp)) continue;
+            if (residual_levels(c, CHROMA_DC, sig) < 0) return -1;
+            /* hadamard2x2, then chroma_dc's (v * dq[0]) >> 5, wrapped */
+            int64_t a = sig[0], b = sig[1], cc = sig[2], d = sig[3];
+            int64_t h[4] = {a + b + cc + d, a - b + cc - d, a + b - cc - d,
+                            a - b - cc + d};
+            int prop = intra ? (1 + comp) : (4 + comp);
+            int64_t qm = c->dq4[prop * 52 * 16 + qp_c[comp] * 16];
+            int32_t *dstc = c->coeffs_c + ((mb * 2 + comp) * 4) * 16;
+            for (int k = 0; k < 4; k++) dstc[k * 16] = wrap16((h[k] * qm) >> 5);
+        }
+    }
+    if (cbp & 0x20) {
+        for (int comp = 0; comp < 2; comp++) {
+            int prop = intra ? (1 + comp) : (4 + comp);
+            const int64_t *dq_c = c->dq4 + prop * 52 * 16 + qp_c[comp] * 16;
+            for (int k = 0; k < 4; k++) {
+                int cx = mbx * 2 + k % 2, cy = mby * 2 + k / 2;
+                int32_t *nz = c->nzc_c + comp * (c->mb_h * 2) * w2 + cy * w2 + cx;
+                if (cbf(c, mb, CHROMA_AC, cx, cy, comp, 0)) {
+                    if ((tc = residual_levels(c, CHROMA_AC, sig)) < 0) return -1;
+                    memset(blkc, 0, sizeof(blkc));
+                    for (int j = 0; j < 15; j++) blkc[c->zigzag[j + 1]] = sig[j];
+                    dequant4(dq_c, blkc,
+                             c->coeffs_c + ((mb * 2 + comp) * 4 + k) * 16, 1);
+                    *nz = tc;
+                } else {
+                    *nz = 0;
+                }
+            }
+        }
+    } else {
+        set_nzc_c(c, mb, 0);
+    }
+    return 0;
+}
+
+/* ---------- MBs ---------- */
+/* the intra MB after its mb_type (raw 0 I4x4, 1..24 I16x16, 25 IPCM) */
+static int decode_i_mb(PC *c, int mb, int raw) {
+    int mbx = mb % c->mb_w, mby = mb / c->mb_w, w4 = c->w4;
+    for (int q = 0; q < 4; q++) c->pred_mode[mb * 4 + q] = -1;
+
+    if (raw == 25) {   /* IPCM: the samples start at the next byte */
+        Eng *e = &c->e;
+        c->mb_type[mb] = T_IPCM;
+        long long bpos = (e->pos + 7) >> 3, nbytes = e->nbits >> 3;
+        if (bpos + 384 > nbytes) { c->err = 2; return -1; }
+        memcpy(c->ipcm_buf + (size_t)mb * 384, e->data + bpos, 384);
+        c->ipcm_flag[mb] = 1;
+        c->qp[mb] = 0;
+        set_nzc_l(c, mb, 16);
+        set_nzc_c(c, mb, 16);
+        for (int y = mby * 4; y < mby * 4 + 4; y++)
+            for (int x = mbx * 4; x < mbx * 4 + 4; x++)
+                c->i4_grid[y * w4 + x] = 2;
+        c->cbf_dc[mb] = 7;
+        c->last_dqp = 0;
+        eng_start(e, (bpos + 384) * 8);   /* the contexts carry on */
+        return 0;
+    }
+
+    int cbp;
+    if (raw == 0) {
+        c->mb_type[mb] = T_I4;
+        c->transform8[mb] = 0;
+        int32_t modes[16] = {0};
+        for (int k = 0; k < 16; k++) {
+            int raster = ZS2R[k];
+            int gx = mbx * 4 + raster % 4, gy = mby * 4 + raster / 4;
+            int pred = pred_i4_mode(c, gx, gy);
+            int rem = intra4x4_pred_mode(c);
+            int mode = rem < 0 ? pred : (rem < pred ? rem : rem + 1);
+            c->i4_grid[gy * w4 + gx] = mode;
+            modes[raster] = mode;
+        }
+        memcpy(c->i4_modes + mb * 16, modes, sizeof(modes));
+        c->chroma_mode[mb] = intra_chroma_pred_mode(c, mb);
+        cbp = cbp_ctx(c, mb);
+    } else {
+        c->mb_type[mb] = T_I16;
+        int mt = raw - 1;
+        c->i16_mode[mb] = mt & 3;
+        cbp = c->cbp_i16[mt >> 2];
+        for (int y = mby * 4; y < mby * 4 + 4; y++)
+            for (int x = mbx * 4; x < mbx * 4 + 4; x++)
+                c->i4_grid[y * w4 + x] = 2;
+        c->chroma_mode[mb] = intra_chroma_pred_mode(c, mb);
+    }
+    c->cbp[mb] = cbp;
+    return store_residual(c, mb, cbp, c->mb_type[mb] == T_I16);
+}
+
+/* a partition's list 0 mvd pair, its MV from the MVP, and its mvd */
+static int set_part_with_mvd(PC *c, int mb, int px, int py, int pw, int ph,
+                             int ref) {
+    int32_t d0 = mvd(c, mb, 0, px, py);
+    if (c->err) return -1;
+    int32_t d1 = mvd(c, mb, 1, px, py);
+    if (c->err) return -1;
+    int32_t mvp[2];
+    pred_mv(c, px, py, pw, ph, 0, ref, mb, mvp);
+    /* int32 sums wrap, as numpy's do */
+    set_partition(c, px, py, pw, ph, 0, ref,
+                  (int32_t)((uint32_t)mvp[0] + (uint32_t)d0),
+                  (int32_t)((uint32_t)mvp[1] + (uint32_t)d1));
+    for (int y = py; y < py + ph; y++)
+        for (int x = px; x < px + pw; x++) {
+            c->gmvd[(y * c->w4 + x) * 2] = d0;
+            c->gmvd[(y * c->w4 + x) * 2 + 1] = d1;
+        }
+    return 0;
+}
+
+static void clear_block_grids(PC *c, int mb, int direct) {
+    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    int w4 = c->w4, h4 = c->h4;
+    for (int lx = 0; lx < 2; lx++)
+        for (int y = gy; y < gy + 4; y++)
+            for (int x = gx; x < gx + 4; x++) {
+                c->gmvd[((lx * h4 + y) * w4 + x) * 2] = 0;
+                c->gmvd[((lx * h4 + y) * w4 + x) * 2 + 1] = 0;
+            }
+    for (int y = gy; y < gy + 4; y++)
+        for (int x = gx; x < gx + 4; x++)
+            c->gdirect[y * w4 + x] = (int8_t)direct;
+}
+
+static int decode_p_mb(PC *c, int mb) {
+    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    clear_block_grids(c, mb, 0);
+    int raw = mb_type_p_slice(c);
+    if (raw >= 5) {
+        if (decode_i_mb(c, mb, raw - 5)) return -1;
+        mark_intra_grids(c, mb);
+        return 0;
+    }
+    for (int q = 0; q < 4; q++) c->pred_mode[mb * 4 + q] = 0;
+    if (raw == 0) {
+        c->mb_type[mb] = T_P16;
+        int ref = ref_idx(c, mb, gx, gy);
+        if (c->err) return -1;
+        if (set_part_with_mvd(c, mb, gx, gy, 4, 4, ref)) return -1;
+    } else if (raw == 1 || raw == 2) {
+        /* 16x8 (partitions stacked) or 8x16 (side by side) */
+        c->mb_type[mb] = raw == 1 ? T_P168 : T_P816;
+        int pw = raw == 1 ? 4 : 2, ph = raw == 1 ? 2 : 4;
+        int px[2], py[2], refs[2];
+        for (int p = 0; p < 2; p++) {
+            px[p] = raw == 1 ? gx : gx + 2 * p;
+            py[p] = raw == 1 ? gy + 2 * p : gy;
+            refs[p] = ref_idx(c, mb, px[p], py[p]);
+            if (c->err) return -1;
+            note_ref(c, px[p], py[p], pw, ph, refs[p]);
+        }
+        for (int p = 0; p < 2; p++)
+            if (set_part_with_mvd(c, mb, px[p], py[p], pw, ph, refs[p]))
+                return -1;
+    } else {           /* P_8x8 (raw 3; the tree never gives P_8x8ref0) */
+        c->mb_type[mb] = T_P88;
+        int subs[4], refs[4];
+        for (int q = 0; q < 4; q++) subs[q] = sub_mb_type_p(c);
+        for (int q = 0; q < 4; q++) {
+            int qx = gx + (q % 2) * 2, qy = gy + (q / 2) * 2;
+            refs[q] = ref_idx(c, mb, qx, qy);
+            if (c->err) return -1;
+            note_ref(c, qx, qy, 2, 2, refs[q]);
+        }
+        for (int q = 0; q < 4; q++) {
+            int qx = gx + (q % 2) * 2, qy = gy + (q / 2) * 2, st = subs[q];
+            int n_parts = st == 0 ? 1 : (st == 3 ? 4 : 2);
+            int pw = (st == 0 || st == 1) ? 2 : 1;
+            int ph = (st == 0 || st == 2) ? 2 : 1;
+            for (int part = 0; part < n_parts; part++) {
+                int px = qx, py = qy;
+                if (st == 1) py += part;
+                else if (st == 2) px += part;
+                else if (st == 3) { px += part % 2; py += part / 2; }
+                if (set_part_with_mvd(c, mb, px, py, pw, ph, refs[q]))
+                    return -1;
+            }
+        }
+    }
+    set_partition(c, gx, gy, 4, 4, 1, -1, 0, 0);
+    finish_inter_mb(c, mb);
+    int cbp = cbp_ctx(c, mb);
+    c->cbp[mb] = cbp;
+    if (cbp) return store_residual(c, mb, cbp, 0);
+    c->last_dqp = 0;
+    c->qp[mb] = c->cur_qp;
+    set_nzc_l(c, mb, 0);
+    set_nzc_c(c, mb, 0);
+    return 0;
+}
+
+static void decode_p_skip(PC *c, int mb) {
+    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    clear_block_grids(c, mb, 1);
+    c->mb_type[mb] = T_PSKIP;
+    int32_t mv[2];
+    pred_skip_mv(c, gx, gy, mb, mv);
+    set_partition(c, gx, gy, 4, 4, 0, 0, mv[0], mv[1]);
+    set_partition(c, gx, gy, 4, 4, 1, -1, 0, 0);
+    c->cbp[mb] = 0;
+    c->qp[mb] = c->cur_qp;
+    c->last_dqp = 0;
+    finish_inter_mb(c, mb);
+}
+
+/* ---------- entry ---------- */
+/* ptrs / params layouts in native.py (parse_cabac_slice_native).
+ * out: [0] one past the last MB, [1] the engine's end bit, [2] error
+ * (0 ok, 2 invalid), [3] bins decoded, [4] MBs marked correct, [5] 1 if
+ * an MB reached its residual's QP. Returns out[2]. */
+long long parse_cabac_slice(const void **ptrs, const int64_t *params,
+                            int64_t *out) {
+    PC c;
+    memset(&c, 0, sizeof(c));
+    int i = 0;
+    c.e.data = (const uint8_t *)ptrs[i++];
+    const int32_t *init_mn = (const int32_t *)ptrs[i++];
+    c.e.range_lps = (const int32_t *)ptrs[i++];
+    c.e.state_trans = (const int32_t *)ptrs[i++];
+    c.dq4 = (const int64_t *)ptrs[i++];
+    c.chroma_qp = (const int32_t *)ptrs[i++];
+    c.zigzag = (const int32_t *)ptrs[i++];
+    c.cbp_i16 = (const int32_t *)ptrs[i++];
+    c.l0_pic_ids = (const int32_t *)ptrs[i++];
+    c.mb_type = (int32_t *)ptrs[i++];
+    c.slice_id = (int32_t *)ptrs[i++];
+    c.transform8 = (uint8_t *)ptrs[i++];
+    c.i16_mode = (int32_t *)ptrs[i++];
+    c.chroma_mode = (int32_t *)ptrs[i++];
+    c.i4_modes = (int32_t *)ptrs[i++];
+    c.cbp = (int32_t *)ptrs[i++];
+    c.qp = (int32_t *)ptrs[i++];
+    c.mv = (int32_t *)ptrs[i++];
+    c.refidx = (int8_t *)ptrs[i++];
+    c.ref_pic = (int32_t *)ptrs[i++];
+    c.pred_mode = (int8_t *)ptrs[i++];
+    c.coeffs_l = (int32_t *)ptrs[i++];
+    c.coeffs_c = (int32_t *)ptrs[i++];
+    c.nzc_l = (int32_t *)ptrs[i++];
+    c.nzc_c = (int32_t *)ptrs[i++];
+    c.disable_deblock = (int32_t *)ptrs[i++];
+    c.alpha_off = (int32_t *)ptrs[i++];
+    c.beta_off = (int32_t *)ptrs[i++];
+    c.mb_correct = (uint8_t *)ptrs[i++];
+    c.i4_grid = (int32_t *)ptrs[i++];
+    c.gmv = (int32_t *)ptrs[i++];
+    c.gref = (int32_t *)ptrs[i++];
+    c.gwritten = (uint8_t *)ptrs[i++];
+    c.grefw = (uint8_t *)ptrs[i++];
+    c.cbf_dc = (int32_t *)ptrs[i++];
+    c.gmvd = (int32_t *)ptrs[i++];
+    c.gdirect = (int8_t *)ptrs[i++];
+    c.ipcm_buf = (uint8_t *)ptrs[i++];
+    c.ipcm_flag = (uint8_t *)ptrs[i++];
+
+    i = 0;
+    c.e.nbits = params[i++];
+    long long start_bit = params[i++];
+    int is_i = (int)params[i++];
+    c.first_mb = (int)params[i++];
+    c.mb_w = (int)params[i++];
+    c.mb_h = (int)params[i++];
+    c.slice_idx = (int)params[i++];
+    c.cur_qp = (int)params[i++];
+    int init_idc = (int)params[i++];
+    c.num_ref_l0 = (int)params[i++];
+    c.n_l0 = (int)params[i++];
+    c.constrained = (int)params[i++];
+    c.ddb_idc = (int)params[i++];
+    c.a_off = (int)params[i++];
+    c.b_off = (int)params[i++];
+    c.coff0 = (int)params[i++];
+    c.coff1 = (int)params[i++];
+    c.w4 = c.mb_w * 4;
+    c.h4 = c.mb_h * 4;
+
+    int init_qp = c.cur_qp < 0 ? 0 : (c.cur_qp > 51 ? 51 : c.cur_qp);
+    ctx_init(&c.e, init_mn, is_i, init_idc, init_qp);
+    eng_start(&c.e, start_bit);
+
+    int mb = c.first_mb;
+    long long n_mb = (long long)c.mb_w * c.mb_h, done = 0;
+    while (mb < n_mb) {
+        mb_common_init(&c, mb);
+        int rc;
+        if (is_i)
+            rc = decode_i_mb(&c, mb, mb_type_i_slice(&c, mb));
+        else if (skip_flag(&c, mb)) {
+            decode_p_skip(&c, mb);
+            rc = 0;
+        } else
+            rc = decode_p_mb(&c, mb);
+        if (rc) break;
+        c.mb_correct[mb] = 1;
+        done++;
+        mb++;
+        if (terminate(&c.e)) break;   /* end_of_slice_flag */
+    }
+    out[0] = mb;
+    out[1] = c.e.pos;
+    out[2] = c.err;
+    out[3] = c.e.bins;
+    out[4] = done;
+    out[5] = c.residual_seen;
+    return c.err;
+}

@@ -6,9 +6,11 @@ initialisation from the m,n table) and CabacEngine, the spec arithmetic
 decoder (§9.3.3.2) bit for bit. The context layout is the spec's ctxIdx
 space 0..459, which the reference uses too (decoder_context.h
 NEW_CTX_OFFSET_*). The host encoder's writer (encoder/cabac_enc.py)
-shares the contexts and tables; the decoder's slice parser
+shares the contexts and tables; the decoder's per-MB slice parser
 (slice_dec_cabac.py) runs the engine, with the residual bins in host C
-(csrc/cabac_residual.c) over the same engine state.
+(csrc/cabac_residual.c) over the same engine state, and the host C
+parser of whole I/P slices (csrc/parse_cabac.c) carries its own copy of
+the engine and the context initialisation, from the same tables.
 """
 
 from __future__ import annotations

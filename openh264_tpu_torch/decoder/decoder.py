@@ -4,10 +4,11 @@ Port of openh264_tpu/decoder/decoder.py, which mirrors the reference's
 decode entry flow (welsDecoderExt.cpp DecodeFrameNoDelay → WelsDecodeBs
 → ConstructAccessUnit, SURVEY.md §3.3): Annex-B in, YUV420 frames out.
 
-Per picture: the slices are parsed on the host: CAVLC I/P slices in C,
-or, B slices, FMO and the 8x8 transform, by the per-MB Python parser
-(slice_dec.py); CABAC slices per bin in Python with their residual bins
-in C (slice_dec_cabac.py); B direct motion is derived on the host
+Per picture: the slices are parsed on the host: I/P slices without FMO
+or the 8x8 transform whole in host C, CAVLC (csrc/parse_cavlc.c) or
+CABAC (csrc/parse_cabac.c); B slices, FMO and the 8x8 transform by the
+per-MB Python parsers (slice_dec.py; slice_dec_cabac.py, per bin with
+their residual bins in C); B direct motion is derived on the host
 (direct.py); inter MBs are predicted (L0, L1, bi, weighted) and get
 their 4x4 or 8x8 residual on the decoder's device and intra MBs run in
 host C, or in host Python in a picture with I8x8 MBs (recon_batch.py);

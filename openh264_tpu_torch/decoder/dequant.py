@@ -11,7 +11,8 @@ Properties: 0..2 intra Y/Cb/Cr, 3..5 inter Y/Cb/Cr (4x4); 0 intra /
 
 Copied from openh264_tpu/decoder/dequant.py (DequantTables), with
 `eff4` from openh264_tpu/native/__init__.py::_dq_eff, the table the
-host C parser (csrc/parse_cavlc.c) dequantises with, and the numpy DC
+host C parsers (csrc/parse_cavlc.c, csrc/parse_cabac.c) dequantise
+with, and the numpy DC
 transforms of openh264_tpu/oracle/transform.py that the per-MB parsers
 (slice_dec.py, slice_dec_cabac.py) apply at parse time. The 8x8 tables
 are built but no slice reaches them: slice_dec.check_scope refuses the

@@ -7,13 +7,21 @@ parse_mb_syn_cabac.cpp).
 Port of openh264_tpu/decoder/slice_dec_cabac.py: I, P and B slices,
 with the 8x8 transform (transform_size_8x8_flag, I8x8, the LUMA_8x8
 residual blocks) and B direct prediction through slice_dec.apply_direct
-(SP/SI slices are refused by slice_dec.check_scope). The
-syntax elements run per bin in Python on CabacEngine; every residual
-block's bins run in host C (csrc/cabac_residual.c) over the same engine
-state and context arrays, so the two interleave within a slice. The JAX
-module falls back to Python residual bins when its C does not build;
-here a failed build raises, and the Python bin loop
-(residual_levels_plain) is only the twin the tests hold the C against.
+(SP/SI slices are refused by slice_dec.check_scope).
+
+decode_slice_data_cabac routes as decode_slice_data_cavlc does: I and P
+slices without FMO or the 8x8 transform go whole to the host C
+(csrc/parse_cabac.c through native.parse_cabac_slice_native), which
+mirrors this module's per-MB parser array for array; B slices, FMO and
+a PPS with transform_8x8_mode go to the per-MB parser here
+(decode_slice_mbs_cabac), the general path and the twin the tests hold
+the C against. There the syntax elements run per bin in Python on
+CabacEngine, and every residual block's bins in host C
+(csrc/cabac_residual.c) over the same engine state and context arrays,
+so the two interleave within a slice. The JAX module falls back to
+Python residual bins when its C does not build; here a failed build
+raises, and the Python bin loop (residual_levels_plain) is only the twin
+the tests hold csrc/cabac_residual.c against.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import numpy as np
 
 from ..tables import CHROMA_QP_TABLE, ZIGZAG_4x4, ZIGZAG_8x8
 from ..tables.cavlc import CBP_I16x16
+from ..utils import trace
 from .cabac import (CabacContexts, CabacEngine, CTX_B_SKIP, CTX_B_SUBMB_TYPE,
                     CTX_CBF, CTX_CBP, CTX_CIPR, CTX_DELTA_QP, CTX_IPR,
                     CTX_MAP, CTX_MAP_8x8, CTX_LAST, CTX_LAST_8x8, CTX_MVD,
@@ -918,30 +927,54 @@ def _decode_skip_mb_cabac(dec: CabacSliceDecoder, mb_idx: int, is_b: bool) -> No
     _finish_inter_mb(ctx, mb_idx)
 
 
-def decode_slice_data_cabac(rbsp: bytes, bitpos: int,
-                            ctx: SliceDecodeContext) -> int:
-    """Parse all MBs of a CABAC I, P or B slice from bit `bitpos` of its
-    RBSP (the end of its header). Returns one past the last MB."""
+def decode_slice_mbs_cabac(rbsp: bytes, bitpos: int,
+                           ctx: SliceDecodeContext) -> tuple[int, int]:
+    """The per-MB Python parser: all MBs of a CABAC I, P or B slice from
+    bit `bitpos` of its RBSP (the end of its header), in raster order or
+    along ctx.fmo_next. Returns (one past the last MB, the engine's end
+    bit). Counts cabac_python_mbs on the open span while the recorder
+    is on."""
     sh = ctx.sh
     fs = ctx.fs
-    check_scope(sh)
     dec = CabacSliceDecoder(ctx, rbsp, bitpos)
     mb_idx = sh.first_mb_in_slice
     n_mb = ctx.mb_w * ctx.mb_h
     is_i = sh.slice_type == I_SLICE
     is_b = sh.slice_type == B_SLICE
     coded_mb = _decode_b_mb_cabac if is_b else _decode_p_mb_cabac
-    while mb_idx < n_mb:
-        _mb_common_init(ctx, mb_idx)
-        if is_i:
-            _decode_i_mb_cabac(dec, mb_idx, dec.mb_type_i_slice(mb_idx))
-        elif dec.skip_flag(mb_idx, is_b):
-            _decode_skip_mb_cabac(dec, mb_idx, is_b)
-        else:
-            coded_mb(dec, mb_idx)
-        fs.mb_correct[mb_idx] = True
-        mb_idx = (int(ctx.fmo_next[mb_idx]) if ctx.fmo_next is not None
-                  else mb_idx + 1)
-        if dec.eng.terminate():  # end_of_slice_flag
-            break
-    return mb_idx
+    done = 0
+    try:
+        while mb_idx < n_mb:
+            _mb_common_init(ctx, mb_idx)
+            if is_i:
+                _decode_i_mb_cabac(dec, mb_idx, dec.mb_type_i_slice(mb_idx))
+            elif dec.skip_flag(mb_idx, is_b):
+                _decode_skip_mb_cabac(dec, mb_idx, is_b)
+            else:
+                coded_mb(dec, mb_idx)
+            fs.mb_correct[mb_idx] = True
+            done += 1
+            mb_idx = (int(ctx.fmo_next[mb_idx]) if ctx.fmo_next is not None
+                      else mb_idx + 1)
+            if dec.eng.terminate():  # end_of_slice_flag
+                break
+    finally:
+        trace.count("cabac_python_mbs", done)
+    return mb_idx, dec.eng.pos
+
+
+def decode_slice_data_cabac(rbsp: bytes, bitpos: int,
+                            ctx: SliceDecodeContext) -> int:
+    """Parse all MBs of a CABAC slice from bit `bitpos` of its RBSP (the
+    end of its header). Returns one past the last MB. I and P slices
+    without FMO or the 8x8 transform go to the host C
+    (native.parse_cabac_slice_native), the others (B, FMO,
+    transform_8x8_mode) to the Python parser, as decode_slice_data_cavlc
+    routes CAVLC slices."""
+    from ..native import parse_cabac_slice_native
+    sh = ctx.sh
+    check_scope(sh)
+    if sh.slice_type == B_SLICE or sh.pps.num_slice_groups > 1 or \
+            sh.pps.transform_8x8_mode:
+        return decode_slice_mbs_cabac(rbsp, bitpos, ctx)[0]
+    return parse_cabac_slice_native(rbsp, bitpos, ctx)[0]

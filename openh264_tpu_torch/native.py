@@ -1,12 +1,15 @@
 """Host C of the host encoder and the decoder, bound with ctypes: the
 I-frame intra mode decision and encode (`enc_intra_frame_native`), the
 token bit packer (`bitpack`), the decoder's CAVLC slice parser
-(`parse_cavlc_slice_native`), its CABAC residual-block bins
-(`cabac_residual_lib`) and its intra reconstruction
-(`recon_intra_mbs_native`).
+(`parse_cavlc_slice_native`), its CABAC slice parser of I and P slices
+(`parse_cabac_slice_native`), the CABAC residual-block bins of its
+per-MB Python parser (`cabac_residual_lib`) and its intra
+reconstruction (`recon_intra_mbs_native`).
 
 Port of the functions of openh264_tpu/native/__init__.py that these
-paths run; the C is csrc/host_native.c, csrc/parse_cavlc.c and
+paths run, and the CABAC slice parser, which the JAX package does not
+have (its CABAC syntax elements run per bin in Python); the C is
+csrc/host_native.c, csrc/parse_cavlc.c, csrc/parse_cabac.c and
 csrc/cabac_residual.c, built with the host compiler by _build.py at
 first use. Unlike the JAX package, which falls back to numpy, to
 I16-only intra, to its Python parser or to Python CABAC bins when its C
@@ -22,6 +25,7 @@ import numpy as np
 
 from . import _build
 from .tables import CHROMA_QP_TABLE, DEQUANT_4x4, QUANT_MF_4x4, ZIGZAG_4x4
+from .utils import trace
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,6 +47,14 @@ def _parse_lib() -> ctypes.CDLL:
     lib = _build.load("parse_cavlc")
     lib.parse_cavlc_slice.restype = ctypes.c_int
     lib.parse_cavlc_slice.argtypes = [ctypes.c_void_p] * 3
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _cabac_parse_lib() -> ctypes.CDLL:
+    lib = _build.load("parse_cabac")
+    lib.parse_cabac_slice.restype = ctypes.c_longlong
+    lib.parse_cabac_slice.argtypes = [ctypes.c_void_p] * 3
     return lib
 
 
@@ -214,6 +226,113 @@ def parse_cavlc_slice_native(br, ctx) -> int:
                              raw[256:320].reshape(8, 8).copy(),
                              raw[320:].reshape(8, 8).copy())
     return int(out[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _cabac_tables() -> dict:
+    """The CABAC parser's tables as contiguous arrays."""
+    from .decoder.cabac import CTX_INIT_MN, RANGE_LPS, STATE_TRANS
+    from .tables.cavlc import CBP_I16x16
+    return {
+        "init_mn": np.ascontiguousarray(CTX_INIT_MN, np.int32),
+        "range_lps": np.ascontiguousarray(RANGE_LPS, np.int32),
+        "state_trans": np.ascontiguousarray(STATE_TRANS, np.int32),
+        "cqp": np.ascontiguousarray(CHROMA_QP_TABLE, np.int32),
+        "zz": np.ascontiguousarray(ZIGZAG_4x4, np.int32),
+        "cbp_i16": np.ascontiguousarray(CBP_I16x16, np.int32),
+    }
+
+
+# parse_cabac_slice's error codes (out[2]) and the exception each is
+_CABAC_ERRORS = {2: (ValueError, "invalid CABAC bitstream (native parse)"),
+                 3: (IndexError, "slice QP outside the dequant tables "
+                                 "(native CABAC parse)"),
+                 4: (OverflowError, "CABAC offset past int64 at a residual "
+                                    "block (native parse)")}
+
+
+def parse_cabac_slice_native(rbsp: bytes, bitpos: int, ctx) -> tuple:
+    """Parses one CABAC I or P slice's data (no 8x8 transform, no FMO:
+    decoder/slice_dec_cabac.py routes those to its Python parser) from
+    bit `bitpos` of its RBSP (the end of its header) into ctx.fs, as
+    slice_dec_cabac.decode_slice_mbs_cabac does, array for array.
+    Returns (one past the last MB, the engine's end bit). Raises what
+    the Python parser raises: ValueError on a runaway code or truncated
+    IPCM samples, IndexError on a QP outside the dequant tables,
+    OverflowError where a broken stream grows the engine's offset past
+    int64 before a residual block, with the MBs parsed so far marked in
+    fs.mb_correct and every array as the Python parser leaves it.
+    Counts cabac_c_mbs and cabac_bins on the open span while the
+    recorder is on."""
+    from .decoder.slice_dec_cabac import ensure_cabac_state
+    from .decoder.slicehdr import I_SLICE, P_SLICE
+    sh, fs = ctx.sh, ctx.fs
+    if sh.slice_type not in (I_SLICE, P_SLICE) or \
+            sh.pps.transform_8x8_mode or sh.pps.num_slice_groups > 1:
+        raise NotImplementedError("parse_cabac_slice_native: I/P slices "
+                                  "without the 8x8 transform or FMO only")
+    ensure_cabac_state(fs)
+    is_i = sh.slice_type == I_SLICE
+    if not is_i and not 0 <= sh.cabac_init_idc <= 2:
+        # CabacContexts indexes the m,n table by cabac_init_idc + 1
+        raise IndexError(f"cabac_init_idc {sh.cabac_init_idc} out of 0..2")
+    t = _cabac_tables()
+    n_mb = fs.n_mb
+    ipcm_buf = np.empty((n_mb, 384), np.uint8)
+    ipcm_flag = np.zeros(n_mb, np.uint8)
+    l0_ids = np.array(
+        [p.pic_id if p is not None else -1 for p in ctx.ref_list0] or [-1],
+        np.int32)
+    i32, i8, u8, b = np.int32, np.int8, np.uint8, np.bool_
+    typed = [
+        (np.frombuffer(rbsp, u8), u8), (t["init_mn"], i32),
+        (t["range_lps"], i32), (t["state_trans"], i32),
+        (ctx.dq.eff4(), np.int64), (t["cqp"], i32), (t["zz"], i32),
+        (t["cbp_i16"], i32), (l0_ids, i32), (fs.mb_type, i32),
+        (fs.slice_id, i32), (fs.transform8, b), (fs.i16_mode, i32),
+        (fs.chroma_mode, i32), (fs.i4_modes, i32), (fs.cbp, i32),
+        (fs.qp, i32), (fs.mv, i32), (fs.refidx, i8), (fs.ref_pic, i32),
+        (fs.pred_mode, i8), (fs.coeffs_l, i32), (fs.coeffs_c, i32),
+        (fs.nzc_l, i32), (fs.nzc_c, i32), (fs.disable_deblock, i32),
+        (fs.alpha_offset, i32), (fs.beta_offset, i32), (fs.mb_correct, b),
+        (fs.i4_grid, i32), (fs.gmv, i32), (fs.gref, i32),
+        (fs.gwritten, b), (fs.grefw, b), (fs.cbf_dc, i32), (fs.gmvd, i32),
+        (fs.gdirect, i8), (ipcm_buf, u8), (ipcm_flag, u8)]
+    for a, dt in typed:
+        if a.dtype != dt or not a.flags["C_CONTIGUOUS"]:
+            raise ValueError("parse_cabac_slice_native: a symbol array of "
+                             f"{a.dtype} (contiguous: "
+                             f"{a.flags['C_CONTIGUOUS']}) where {dt} is due")
+    ptrs = np.array([a.ctypes.data for a, _dt in typed], np.uint64)
+    params = np.array([
+        8 * len(rbsp), bitpos, int(is_i), sh.first_mb_in_slice, fs.mb_w,
+        fs.mb_h, ctx.slice_idx, ctx.qp, sh.cabac_init_idc,
+        sh.num_ref_idx_l0_active, len(ctx.ref_list0),
+        int(ctx.constrained_intra), sh.disable_deblocking_filter_idc,
+        sh.slice_alpha_c0_offset, sh.slice_beta_offset,
+        sh.pps.chroma_qp_index_offset, sh.pps.second_chroma_qp_index_offset],
+        np.int64)
+    out = np.zeros(6, np.int64)
+    _cabac_parse_lib().parse_cabac_slice(ptrs.ctypes.data, params.ctypes.data,
+                                         out.ctypes.data)
+    end_mb, end_pos, err, bins, n_done, residual = (int(v) for v in out)
+    # the Python parser sets the deblock's chroma offsets at the first MB
+    # that reaches its residual, and keeps each IPCM MB's samples as it
+    # parses it, also in a slice that fails later
+    if residual:
+        fs.chroma_qp_offsets = (sh.pps.chroma_qp_index_offset,
+                                sh.pps.second_chroma_qp_index_offset)
+    for idx in np.nonzero(ipcm_flag)[0]:
+        raw = ipcm_buf[idx]
+        fs.ipcm[int(idx)] = (raw[:256].reshape(16, 16).copy(),
+                             raw[256:320].reshape(8, 8).copy(),
+                             raw[320:].reshape(8, 8).copy())
+    trace.count("cabac_c_mbs", n_done)
+    trace.count("cabac_bins", bins)
+    if err:
+        exc, msg = _CABAC_ERRORS[err]
+        raise exc(msg)
+    return end_mb, end_pos
 
 
 def recon_intra_mbs_native(y, u, v, fs, intra_list, constrained: bool):

@@ -719,7 +719,7 @@ class BinChooser(CabacEngine):
 
     def terminate(self):
         caller = sys._getframe(1)
-        bit = int(caller.f_code.co_name == "decode_slice_data_cabac" and
+        bit = int(caller.f_code.co_name == "decode_slice_mbs_cabac" and
                   caller.f_locals["mb_idx"] >= self.end_mb)
         self.bins.append((2, 0, bit))
         return bit

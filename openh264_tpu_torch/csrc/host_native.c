@@ -750,7 +750,9 @@ void enc_intra_frame(const void **ptrs, const int32_t *params) {
  * only ever read raster-earlier neighbors, so this split is exact).
  * Mirrors openh264_tpu/decoder/recon_oracle.py recon_intra_mb and
  * oracle/intra.py (the parity of rec_mb.cpp RecI16x16Mb / RecI4x4Mb /
- * RecChroma and get_intra_predictor.cpp). I8x8 is not handled here.
+ * RecChroma and get_intra_predictor.cpp), and I8x8 as
+ * oracle/intra8.py predict_8x8 (reference filtering of 8.3.2.2.1, nine
+ * modes) and idct8x8_add (int16 intermediates wrap) do.
  */
 
 /* idct4x4_add parity with oracle/transform.py: horizontal pass stored
@@ -789,6 +791,143 @@ static const int ZS2R[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13,
                              10, 11, 14, 15};
 static int R2Z[16];
 
+/* oracle/intra8.py wrap16: the int16 value congruent to a */
+static inline int64_t w16(int64_t a) {
+    return ((a + 0x8000) & 0xFFFF) - 0x8000;
+}
+
+/* oracle/intra8.py _idct8_butterfly on one vector, op for op */
+static void idct8_1d(const int64_t p[8], int64_t o[8]) {
+    int64_t a0 = w16(p[0] + p[4]), a1 = w16(p[0] - p[4]);
+    int64_t a2 = w16(p[6] - (p[2] >> 1)), a3 = w16(p[2] + (p[6] >> 1));
+    int64_t b0 = w16(a0 + a3), b2 = w16(a1 - a2);
+    int64_t b4 = w16(a1 + a2), b6 = w16(a0 - a3);
+    a0 = w16(-p[3] + p[5] - p[7] - (p[7] >> 1));
+    a1 = w16(p[1] + p[7] - p[3] - (p[3] >> 1));
+    a2 = w16(-p[1] + p[7] + p[5] + (p[5] >> 1));
+    a3 = w16(p[3] + p[5] + p[1] + (p[1] >> 1));
+    int64_t b1 = w16(a0 + (a3 >> 2)), b3 = w16(a1 + (a2 >> 2));
+    int64_t b5 = w16(a2 - (a1 >> 2)), b7 = w16(a3 - (a0 >> 2));
+    o[0] = w16(b0 + b7); o[1] = w16(b2 - b5); o[2] = w16(b4 + b3);
+    o[3] = w16(b6 + b1); o[4] = w16(b6 - b1); o[5] = w16(b4 - b3);
+    o[6] = w16(b2 + b5); o[7] = w16(b0 - b7);
+}
+
+/* oracle/intra8.py idct8x8_add: rows, then columns, (x+32)>>6, add,
+ * clip; coef raster [64] */
+static void idct8_add(const int32_t *coef, const uint8_t pred[64],
+                      uint8_t *dst, int dstride) {
+    int64_t tmp[8][8], col[8], res[8][8];
+    for (int r = 0; r < 8; r++) {
+        int64_t row[8];
+        for (int c = 0; c < 8; c++) row[c] = coef[r * 8 + c];
+        idct8_1d(row, tmp[r]);
+    }
+    for (int c = 0; c < 8; c++) {
+        for (int r = 0; r < 8; r++) col[r] = tmp[r][c];
+        idct8_1d(col, res[c]);
+    }
+    for (int r = 0; r < 8; r++)
+        for (int c = 0; c < 8; c++)
+            dst[r * dstride + c] = (uint8_t)clip255(
+                (int)(pred[r * 8 + c] + ((32 + res[c][r]) >> 6)));
+}
+
+/* oracle/intra8.py predict_8x8: top[16] raw (8..15 replaced by top[7]
+ * where the top-right is missing), left[8], tl; mode 0..8 */
+static void pred8(int mode, const int32_t top[16], const int32_t left[8],
+                  int tl, int at, int al, int atl, int atr,
+                  uint8_t out[64]) {
+    int32_t t[16] = {0}, l[8] = {0}, raw[16];
+    int q = 0;
+    if (at) {
+        for (int i = 0; i < 16; i++) raw[i] = (i >= 8 && !atr) ? top[7]
+                                                                : top[i];
+        t[0] = atl ? (tl + 2 * raw[0] + raw[1] + 2) >> 2
+                   : (3 * raw[0] + raw[1] + 2) >> 2;
+        for (int i = 1; i < 15; i++)
+            t[i] = (raw[i - 1] + 2 * raw[i] + raw[i + 1] + 2) >> 2;
+        t[15] = (raw[14] + 3 * raw[15] + 2) >> 2;
+    }
+    if (al) {
+        l[0] = atl ? (tl + 2 * left[0] + left[1] + 2) >> 2
+                   : (3 * left[0] + left[1] + 2) >> 2;
+        for (int i = 1; i < 7; i++)
+            l[i] = (left[i - 1] + 2 * left[i] + left[i + 1] + 2) >> 2;
+        l[7] = (left[6] + 3 * left[7] + 2) >> 2;
+    }
+    if (atl) {
+        if (at && al) q = (top[0] + 2 * tl + left[0] + 2) >> 2;
+        else if (at) q = (3 * tl + top[0] + 2) >> 2;
+        else if (al) q = (3 * tl + left[0] + 2) >> 2;
+        else q = tl;
+    }
+    for (int y = 0; y < 8; y++)
+        for (int x = 0; x < 8; x++) {
+            int v = 0;
+            if (mode == 2) {
+                int st = 0, sl = 0;
+                for (int i = 0; i < 8; i++) { st += t[i]; sl += l[i]; }
+                v = (at && al) ? (st + sl + 8) >> 4
+                    : al ? (sl + 4) >> 3 : at ? (st + 4) >> 3 : 128;
+            } else if (mode == 0) {
+                v = t[x];
+            } else if (mode == 1) {
+                v = l[y];
+            } else if (mode == 3) {
+                int k = x + y;
+                v = (x == 7 && y == 7) ? (t[14] + 3 * t[15] + 2) >> 2
+                    : (t[k] + 2 * t[k + 1] + t[k + 2] + 2) >> 2;
+            } else if (mode == 4) {
+                /* ref = l[7..0], q, t[0..7]; centre 8 + x - y */
+                int ref[17];
+                for (int i = 0; i < 8; i++) ref[i] = l[7 - i];
+                ref[8] = q;
+                for (int i = 0; i < 8; i++) ref[9 + i] = t[i];
+                int i = 8 + x - y;
+                v = (ref[i - 1] + 2 * ref[i] + ref[i + 1] + 2) >> 2;
+            } else if (mode == 5) {
+                int z = 2 * x - y, i = x - (y >> 1);
+#define TR(j) ((j) < 0 ? q : t[(j)])
+                if (z >= 0 && z % 2 == 0) v = (TR(i - 1) + TR(i) + 1) >> 1;
+                else if (z >= 0)
+                    v = (TR(i - 2) + 2 * TR(i - 1) + TR(i) + 2) >> 2;
+                else if (z == -1) v = (l[0] + 2 * q + t[0] + 2) >> 2;
+                else {
+                    int j = y - 2 * x;
+                    v = (l[j - 1] + 2 * l[j - 2]
+                         + (j - 3 >= 0 ? l[j - 3] : q) + 2) >> 2;
+                }
+#undef TR
+            } else if (mode == 6) {
+                int z = 2 * y - x, i = y - (x >> 1);
+#define LR(j) ((j) < 0 ? q : l[(j)])
+                if (z >= 0 && z % 2 == 0) v = (LR(i - 1) + LR(i) + 1) >> 1;
+                else if (z >= 0)
+                    v = (LR(i - 2) + 2 * LR(i - 1) + LR(i) + 2) >> 2;
+                else if (z == -1) v = (l[0] + 2 * q + t[0] + 2) >> 2;
+                else {
+                    int j = x - 2 * y;
+                    v = (t[j - 1] + 2 * t[j - 2]
+                         + (j - 3 >= 0 ? t[j - 3] : q) + 2) >> 2;
+                }
+#undef LR
+            } else if (mode == 7) {
+                int i = x + (y >> 1);
+                v = (y % 2 == 0) ? (t[i] + t[i + 1] + 1) >> 1
+                    : (t[i] + 2 * t[i + 1] + t[i + 2] + 2) >> 2;
+            } else {    /* 8: HU */
+                int z = x + 2 * y, i = y + (x >> 1);
+                if (z < 13 && z % 2 == 0) v = (l[i] + l[i + 1] + 1) >> 1;
+                else if (z < 13)
+                    v = (l[i] + 2 * l[i + 1] + l[i + 2] + 2) >> 2;
+                else if (z == 13) v = (l[6] + 3 * l[7] + 2) >> 2;
+                else v = l[7];
+            }
+            out[y * 8 + x] = (uint8_t)clip255(v);
+        }
+}
+
 static inline int intra_avail(const int32_t *mb_type,
                               const int32_t *slice_id, int mb_w, int mb_h,
                               int cur, int mbx, int mby, int constrained) {
@@ -803,7 +942,8 @@ static inline int intra_avail(const int32_t *mb_type,
 }
 
 /* ptrs: y,u,v, mb_type, slice_id, i16_mode, i4_modes, chroma_mode,
- *       coeffs_l, coeffs_c, ipcm_buf, ipcm_flag, mb_list
+ *       coeffs_l, coeffs_c, ipcm_buf, ipcm_flag, mb_list, coeffs8
+ *       ([n_mb][4][64], read for I8x8 MBs only)
  * params: mb_w, mb_h, n_list, constrained */
 void recon_intra_mbs(const void **ptrs, const int32_t *params) {
     int i = 0;
@@ -820,6 +960,7 @@ void recon_intra_mbs(const void **ptrs, const int32_t *params) {
     const uint8_t *ipcm_buf = (const uint8_t *)ptrs[i++];
     const uint8_t *ipcm_flag = (const uint8_t *)ptrs[i++];
     const int32_t *mb_list = (const int32_t *)ptrs[i++];
+    const int32_t *coeffs8 = (const int32_t *)ptrs[i++];
     int mb_w = params[0], mb_h = params[1], n_list = params[2],
         constrained = params[3];
     int W = mb_w * 16, CW = mb_w * 8;
@@ -938,10 +1079,33 @@ void recon_intra_mbs(const void **ptrs, const int32_t *params) {
                 idct4_add(coeffs_l + ((size_t)idx * 16 + raster) * 16,
                           pred, 4, Y + gy * W + gx, W);
             }
+        } else if (t == 3) {   /* I8x8 */
+            for (int b8 = 0; b8 < 4; b8++) {
+                int b8x = b8 % 2, b8y = b8 / 2;
+                int gx = x0 + b8x * 8, gy = y0 + b8y * 8;
+                int b_at = b8y > 0 || at, b_al = b8x > 0 || al;
+                int b_atl = b8 == 0 ? atl : b8 == 1 ? at : b8 == 2 ? al : 1;
+                int b_atr = b8 == 0 ? at : b8 == 1 ? atr : b8 == 2;
+                int32_t top[16] = {0}, left[8] = {0};
+                if (b_at)
+                    for (int x = 0; x < 16; x++) {
+                        int px = gx + x;
+                        top[x] = Y[(gy - 1) * W + (px < W ? px : W - 1)];
+                    }
+                if (b_al)
+                    for (int y = 0; y < 8; y++)
+                        left[y] = Y[(gy + y) * W + gx - 1];
+                int tl = b_atl ? Y[(gy - 1) * W + gx - 1] : 0;
+                uint8_t pred[64];
+                pred8(i4_modes[idx * 16 + (b8y * 2) * 4 + b8x * 2], top,
+                      left, tl, b_at, b_al, b_atl, b_atr, pred);
+                idct8_add(coeffs8 + ((size_t)idx * 4 + b8) * 64, pred,
+                          Y + gy * W + gx, W);
+            }
         }
 
-        /* ---- chroma (I4x4 + I16x16) ---- */
-        if (t == 0 || t == 1) {
+        /* ---- chroma (I4x4, I8x8, I16x16) ---- */
+        if (t == 0 || t == 1 || t == 3) {
             int cmode = chroma_mode[idx];
             for (int comp = 0; comp < 2; comp++) {
                 uint8_t *P = comp ? V : U;

@@ -25,7 +25,8 @@ spatial and temporal direct, explicit and implicit weights
 (weighted_bipred_idc 0-2), the 8x8 transform (I8x8, 8x8 inter residual),
 FMO (slice group map types 0-6), 4x4 and 8x8 scaling lists, IPCM, LTR /
 MMCO / ref-list modification of both lists, POC-order output of streams
-with B slices, every deblocking_filter_idc with its offsets, both
+with B slices or whose SPS declares reordering (VUI
+max_num_reorder_frames), every deblocking_filter_idc with its offsets, both
 chroma QP offsets, error concealment. SP and SI slices raise
 NotImplementedError out of decode_annexb / feed_annexb / flush; they
 are never concealed.
@@ -47,14 +48,14 @@ from ..utils import trace
 from .dpb import DPB, Picture, PocContext
 from .ec import ERROR_CON_DISABLE, ERROR_CON_SLICE_COPY, implement_error_con
 from .fmo import build_mb_to_slice_group, next_mb_lut
-from .framedata import (FrameSymbols, MB_BSKIP, MB_I4x4, MB_I8x8,
-                        MB_I16x16, MB_IPCM, MB_PSKIP)
+from .framedata import (FrameSymbols, MB_BDIRECT, MB_BSKIP, MB_I4x4,
+                        MB_I8x8, MB_I16x16, MB_IPCM, MB_PSKIP)
 from .params import parse_pps, parse_sps
 from .recon_batch import recon_frame_batch
 from .slice_dec import SliceDecodeContext, decode_slice_data_cavlc
 from .slice_dec_cabac import decode_slice_data_cabac
 from .slicehdr import parse_slice_header, P_SLICE, B_SLICE
-from .wpred import build_slice_wp
+from .wpred import WP_B_IMPLICIT, WP_NONE, build_slice_wp, implicit_weights
 
 # the stages whose seconds H264Decoder(stage_times=True) adds up, each
 # the sum of its spans' times (decoder.parse is one span per slice)
@@ -101,12 +102,21 @@ class H264Decoder:
     up the seconds of each stage of STAGES in `stage_seconds`, the
     times of the stage's spans (STAGE_SPANS, utils/trace.py), each
     ended by a synchronization of the device (off by default: it costs
-    the device's overlap with the host).
+    the device's overlap with the host). openh264_compat: decode B
+    pictures as the OpenH264 decoder (and the JAX package) does where it
+    departs from clause 8: the BI partitions of B 16x8 / 8x16 MBs
+    (recon_batch.py) and no motion term in the bS of the interior edges
+    of B_Skip and B_Direct_16x16 MBs (slice_dec.apply_direct); and it
+    sends the intra MBs of a picture with I8x8 MBs to the Python recon,
+    whose fault on modes that predict from a missing neighbour it
+    shares (ROADMAP C7). Off by default, when B pictures follow clause 8
+    and every intra MB takes the host C recon.
     """
 
     def __init__(self, device=DEFAULT_DEVICE, ec_mode: int | None = None,
-                 stage_times: bool = False):
+                 stage_times: bool = False, openh264_compat: bool = False):
         self.device = resolve_device(device)
+        self.openh264_compat = openh264_compat
         self.sps_map: dict[int, object] = {}
         self.subset_sps_map: dict[int, object] = {}
         self.pps_map: dict[int, object] = {}
@@ -220,9 +230,10 @@ class H264Decoder:
         frames = [f for f in frames if f is not None]
         # Output (display) order mirrors the reference's reorder policy
         # (welsDecoderExt.cpp:992-1137): baseline profile and B-free
-        # streams release in decode order; only streams that carry
-        # B-slices reorder by POC within each coded video sequence.
-        if self._has_b_slices:
+        # streams release in decode order; streams that carry B-slices
+        # or declare reordering reorder by POC within each coded video
+        # sequence.
+        if self._reorders():
             frames.sort(key=lambda f: (f.cvs, f.poc))
         return frames
 
@@ -260,20 +271,36 @@ class H264Decoder:
                 self._reorder_q.append(f)
         return self._release(eos=True)
 
+    def _reorder_depth(self) -> int | None:
+        """The active SPS's VUI max_num_reorder_frames, where its
+        bitstream_restriction gives it."""
+        vui = getattr(self.active_sps, "vui", None) or {}
+        return vui.get("max_num_reorder_frames")
+
+    def _reorders(self) -> bool:
+        """Whether pictures leave in POC order: once a B slice was
+        seen, and from the first picture of a stream whose SPS declares
+        reordering (the picture after an IDR may precede a B picture
+        in decode order and follow it in output order)."""
+        return self._has_b_slices or bool(self._reorder_depth())
+
     def _release(self, eos: bool) -> list[DecodedFrame]:
         """Bounded-latency reorder release (the reference's
         ReleaseBufferedReadyPictureReorder holds at most the DPB depth
-        before emitting the smallest-POC buffered picture)."""
+        before emitting the smallest-POC buffered picture; the SPS's
+        max_num_reorder_frames, where given, is the depth)."""
         q = self._reorder_q
-        if not self._has_b_slices:
+        if not self._reorders():
             self._reorder_q = []
             return q
         q.sort(key=lambda f: (f.cvs, f.poc))
         if eos:
             self._reorder_q = []
             return q
-        depth = 1 + (self.active_sps.max_num_ref_frames
-                     if self.active_sps is not None else 1)
+        depth = self._reorder_depth()
+        if not depth:
+            depth = 1 + (self.active_sps.max_num_ref_frames
+                         if self.active_sps is not None else 1)
         max_cvs = max((f.cvs for f in q), default=0)
         out = []
         while q and (len(q) > depth or q[0].cvs < max_cvs):
@@ -296,10 +323,14 @@ class H264Decoder:
 
     def _decode_picture(self, slices) -> DecodedFrame | None:
         _, sh0, _ = slices[0]
+        inter = sh0.slice_type in (P_SLICE, B_SLICE)
         with trace.span("decoder.picture", frame=self._pictures,
                         idr=sh0.is_idr, slice_type=sh0.slice_type,
                         entropy=("cabac" if sh0.pps.entropy_coding_mode
-                                 else "cavlc")):
+                                 else "cavlc"),
+                        refs_l0=sh0.num_ref_idx_l0_active if inter else 0,
+                        refs_l1=(sh0.num_ref_idx_l1_active
+                                 if sh0.slice_type == B_SLICE else 0)):
             self._pictures += 1
             return self._decode_picture_in(slices)
 
@@ -312,6 +343,7 @@ class H264Decoder:
             poc = self.poc_ctx.compute(sh0, sh0.nal.nal_ref_idc)
             fs = FrameSymbols(sps.mb_width, sps.mb_height)
             fs.mb_correct[:] = False
+            fs.openh264_compat = self.openh264_compat
             if any(sh.slice_type == B_SLICE for _, sh, _ in slices):
                 self._has_b_slices = True
             if sh0.slice_type in (P_SLICE, B_SLICE) and \
@@ -331,7 +363,8 @@ class H264Decoder:
         last_l0 = None      # last slice's L0 for EC MV-copy modes
         for si, (nal, sh, br) in enumerate(slices):
             with trace.span("decoder.parse", clock=timed,
-                            bytes=len(nal.rbsp)) as sp:
+                            bytes=len(nal.rbsp),
+                            slice_type=sh.slice_type) as sp:
                 last_l0 = self._parse_slice(fs, si, nal, sh, br, poc,
                                             ref_pics, fmo_next, last_l0)
                 if trace.enabled():
@@ -536,6 +569,7 @@ class H264Decoder:
                              {"dpb_index": in_dpb[0]} if in_dpb else
                              pic_state(prev)),
             "ec_mode": self.ec_mode, "cvs_counter": self._cvs_counter,
+            "openh264_compat": self.openh264_compat,
             "has_b_slices": self._has_b_slices, "in_buf": self._in_buf,
             "pending": [(n.nal_ref_idc, n.nal_unit_type, n.rbsp, n.svc_ext)
                         for n, _sh, _br in self._pending],
@@ -546,7 +580,8 @@ class H264Decoder:
     def from_state(cls, state: dict, device=DEFAULT_DEVICE) -> "H264Decoder":
         """A decoder on `device` that continues where the exporting one
         stopped (see export_state)."""
-        dec = cls(device=device, ec_mode=state["ec_mode"])
+        dec = cls(device=device, ec_mode=state["ec_mode"],
+                  openh264_compat=state.get("openh264_compat", False))
         for raw in state["sps"]:
             s = parse_sps(raw)
             dec.sps_map[s.sps_id] = s
@@ -606,14 +641,54 @@ _MB_CLASSES = (("skip", (MB_PSKIP, MB_BSKIP)), ("i4x4", (MB_I4x4,)),
 
 def _count_mb_classes(fs: FrameSymbols) -> None:
     """Counts the picture's decoded MBs by class on the open span; every
-    decoded MB of no other class is "inter"."""
-    t = fs.mb_type[fs.mb_type >= 0]
+    decoded MB of no other class is "inter". Besides: "direct" (B_Skip,
+    B_Direct_16x16, B_8x8 with a direct sub-MB), "bipred" (a BI
+    partition), "t8x8" (transform_size_8x8_flag) and "weighted" (a
+    partition predicted with weights other than the default ones)."""
+    ok = fs.mb_type >= 0
+    t = fs.mb_type[ok]
     rest = len(t)
     for name, types in _MB_CLASSES:
         n = int(np.isin(t, types).sum())
         trace.count(name, n)
         rest -= n
     trace.count("inter", rest)
+    direct = np.isin(fs.mb_type, (MB_BSKIP, MB_BDIRECT)) | fs.sub_direct
+    trace.count("direct", int((ok & direct).sum()))
+    trace.count("bipred", int((ok & (fs.pred_mode == 2).any(1)).sum()))
+    trace.count("t8x8", int((ok & fs.transform8).sum()))
+    trace.count("weighted", int((ok & _weighted(fs)).sum()))
+
+
+def _weighted(fs: FrameSymbols) -> np.ndarray:
+    """Per MB: whether a partition's prediction takes weights other than
+    the default: explicit weights or offsets other than 1 << denom and
+    0 for a list it uses, or implicit bi-weights other than 32 / 32."""
+    out = np.zeros(fs.n_mb, bool)
+    for si, wp in enumerate(fs.wp_by_slice or []):
+        if wp is None or wp.mode == WP_NONE:
+            continue
+        mbs = np.nonzero((fs.slice_id == si) & (fs.mb_type >= 4))[0]
+        r = fs.refidx[mbs].astype(np.int64)          # [M, list, quadrant]
+        used = r >= 0
+        if wp.mode == WP_B_IMPLICIT:
+            w0 = np.array([[implicit_weights(wp, a, b)[0] for b in range(32)]
+                           for a in range(32)])
+            hit = used.all(1) & (w0[r[:, 0].clip(0, 31),
+                                    r[:, 1].clip(0, 31)] != 32)
+        else:
+            odd = np.array([[_explicit_weighted(wp, lx, k) for k in range(32)]
+                            for lx in (0, 1)])
+            hit = (used & odd[np.arange(2)[None, :, None],
+                              r.clip(0, 31)]).any(1)
+        out[mbs] = hit.any(1)
+    return out
+
+
+def _explicit_weighted(wp, lx: int, r: int) -> bool:
+    return (wp.luma_w(lx, r) != (1 << wp.luma_denom, 0)
+            or any(wp.chroma_w(lx, r, c) != (1 << wp.chroma_denom, 0)
+                   for c in (0, 1)))
 
 
 def write_yuv(frames, path):

@@ -60,15 +60,21 @@ class FrameSymbols:
         # motion: per list, per 4x4 block (raster), (mvx, mvy) in 1/4 pel
         self.mv = np.zeros((n, 2, 16, 2), dtype=np.int32)
         self.refidx = np.full((n, 2, 4), -1, dtype=np.int8)  # per 8x8 quadrant
+        # decode B pictures as the OpenH264 decoder does where it departs
+        # from clause 8 (H264Decoder's openh264_compat): the two
+        # fields below, and recon_batch's B 16x8 / 8x16 BI partitions
+        self.openh264_compat = False
         # deblock interior-edge bS mode (decoder deblocking.cpp
-        # WelsDeblockingMb): 0 = normal (mv+nz), 1 = nz-only
-        # (IS_INTER_16x16 incl. direct MBs promoted by GetColocatedMb),
-        # 2 = zero (IS_SKIP)
+        # WelsDeblockingMb), set under openh264_compat only: 0 = normal
+        # (mv+nz), 1 = nz-only (IS_INTER_16x16 incl. direct MBs promoted
+        # by GetColocatedMb), 2 = zero (IS_SKIP)
         self.ibs_mode = np.zeros(n, dtype=np.uint8)
         # 16x16-class flag AFTER direct promotion (recursively recorded;
         # feeds GetColocatedMb's IS_INTER_16x16 test when this picture
         # becomes the colocated picture of a later B)
         self.mb16 = np.zeros(n, dtype=bool)
+        # B_8x8 MBs with a direct sub-MB (the picture's `direct` counter)
+        self.sub_direct = np.zeros(n, dtype=bool)
         self.pred_mode = np.zeros((n, 4), dtype=np.int8)  # 0=L0,1=L1,2=BI,-1=intra
         # scaled (dequantized) coefficients
         self.coeffs_l = np.zeros((n, 16, 16), dtype=np.int32)

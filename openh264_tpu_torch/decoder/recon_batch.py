@@ -14,19 +14,23 @@ the 4x4 (ops/transform.idct4x4_add) or the 8x8 inverse transform
 switches between a numpy and a JAX path (`device: bool`); here there is
 one path, on the planes' device.
 
-The B 16x8 / 8x16 MBs with a BI partition reproduce the reference's
-GetInterBPred (rec_mb.cpp:739-831) byte for byte, as the JAX module
-does (recon_batch.py:265-272; the why in recon_oracle.py:117-130): the
-first partition's BI becomes its L1 prediction passed twice through
+A BI partition of a B 16x8 / 8x16 MB is predicted from both lists, as
+clause 8.4.2 has it. Under fs.openh264_compat (H264Decoder's
+openh264_compat) it reproduces the OpenH264 decoder's GetInterBPred
+(rec_mb.cpp:739-831) byte for byte, as the JAX module does
+(recon_batch.py:265-272; the why in recon_oracle.py:117-130): the first
+partition's BI becomes its L1 prediction passed twice through
 BiWeightPrediction when the slice weights B, and the second partition's
 BI becomes its plain, unweighted L0 prediction.
 
 Intra MBs (sequential neighbour dependencies) run afterwards in raster
 order on host copies of the planes, which move to the host once and
-back once: in host C (native.recon_intra_mbs_native), or, when any of
-them is I8x8, all of them in Python (recon_oracle.recon_intra_mb), as
-the JAX package routes them (recon_batch.py:221-228,
-native/__init__.py:257-266). Inter pixels are final before any intra MB
+back once: in host C (native.recon_intra_mbs_native), I8x8 MBs
+included. Under fs.openh264_compat a picture with an I8x8 MB sends all
+its intra MBs to Python (recon_oracle.recon_intra_mb), as the JAX
+package routes them (recon_batch.py:221-228,
+native/__init__.py:257-266), with its fault on modes that predict from
+a missing neighbour (ROADMAP C7). Inter pixels are final before any intra MB
 reads them, which matches raster decode order since intra prediction
 only reads up/left neighbours. Parity anchors: rec_mb.cpp
 GetInterPred:462 / GetInterBPred:666, WeightPrediction:298,
@@ -141,18 +145,21 @@ def recon_frame_batch(fs: FrameSymbols, ref_pics: dict,
     intra_list = np.nonzero(np.isin(fs.mb_type, INTRA_CLASSES) & mb_ok)[0]
     if not len(intra_list):
         return st
-    with trace.span("recon.intra"):
+    python = fs.openh264_compat and bool(
+        (fs.mb_type[intra_list] == MB_I8x8).any())
+    with trace.span("recon.intra", python=python):
         _recon_intra(st, fs, intra_list, constrained, device,
-                     len(inter_idx) > 0)
+                     len(inter_idx) > 0, python)
     return st
 
 
 def _recon_intra(st: ReconState, fs: FrameSymbols, intra_list,
                  constrained: bool, device: torch.device,
-                 any_inter: bool) -> None:
+                 any_inter: bool, python: bool) -> None:
     """The intra MBs of intra_list in raster order on host copies of the
     planes: one download (none when nothing was predicted on the
-    device), the host C or Python recon, one upload."""
+    device), the host C recon, or the Python one (`python`: a picture
+    with I8x8 MBs under openh264_compat), one upload."""
     from ..native import recon_intra_mbs_native
     if device.type == "cpu":          # the host code writes the tensors
         host = [p.numpy() for p in (st.y, st.u, st.v)]
@@ -162,7 +169,7 @@ def _recon_intra(st: ReconState, fs: FrameSymbols, intra_list,
             host = [p.cpu().numpy() if any_inter else
                     np.zeros(tuple(p.shape), np.uint8)
                     for p in (st.y, st.u, st.v)]
-    if (fs.mb_type[intra_list] == MB_I8x8).any():
+    if python:
         hp = HostPlanes(fs, *host)
         for idx in intra_list:
             recon_intra_mb(hp, int(idx), constrained)
@@ -196,7 +203,8 @@ def _block_params(fs: FrameSymbols, mb_u, blk):
 
     # the B 16x8/8x16 BI partitions of the reference (module docstring)
     second = np.where(mt == MB_B16x8, by >= 2, bx >= 2)
-    quirk_bi = (pm == 2) & ((mt == MB_B16x8) | (mt == MB_B8x16))
+    quirk_bi = (pm == 2) & ((mt == MB_B16x8) | (mt == MB_B8x16)) & \
+        fs.openh264_compat
     quirk_l0 = quirk_bi & second       # plain L0, never weighted
     quirk_l1 = quirk_bi & ~second      # L1 MC through BiWeight twice
 

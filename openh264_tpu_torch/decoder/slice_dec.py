@@ -529,10 +529,14 @@ def apply_direct(ctx: SliceDecodeContext, mb_idx: int, gx0: int, gy0: int,
         col16 = getattr(dctx.col, "col_mb16", None)
         promoted = bool(col16[mb_idx]) if col16 is not None else False
         fs.mb16[mb_idx] = promoted
-        if fs.mb_type[mb_idx] == MB_BSKIP:
-            fs.ibs_mode[mb_idx] = 2
-        else:
-            fs.ibs_mode[mb_idx] = 1 if promoted else 0
+        # clause 8.7.2.1 takes the mv term on every edge (ibs_mode 0)
+        if fs.openh264_compat:
+            if fs.mb_type[mb_idx] == MB_BSKIP:
+                fs.ibs_mode[mb_idx] = 2
+            else:
+                fs.ibs_mode[mb_idx] = 1 if promoted else 0
+    else:
+        fs.sub_direct[mb_idx] = True
     if dctx.spatial:
         ref0, ref1, mv0, mv1, use0, use1 = ctx.spatial_direct_mb(mb_idx)
         step = 2 if dctx.direct_8x8 else 1

@@ -336,14 +336,9 @@ def parse_cabac_slice_native(rbsp: bytes, bitpos: int, ctx) -> tuple:
 
 
 def recon_intra_mbs_native(y, u, v, fs, intra_list, constrained: bool):
-    """Intra recon of the I4x4 / I16x16 / IPCM MBs `intra_list` (raster
-    order) into the host uint8 planes y, u, v in place (MB aligned,
-    C-contiguous). A list with I8x8 MBs is a caller's fault: such a
-    picture's intra MBs all go to the Python recon
-    (recon_batch.recon_frame_batch)."""
-    from .decoder.framedata import MB_I8x8
-    if (fs.mb_type[intra_list] == MB_I8x8).any():
-        raise NotImplementedError("recon_intra_mbs_native: no I8x8 MBs")
+    """Intra recon of the I4x4 / I8x8 / I16x16 / IPCM MBs `intra_list`
+    (raster order) into the host uint8 planes y, u, v in place (MB
+    aligned, C-contiguous), as decoder/recon_oracle.recon_intra_mb."""
     n_mb = fs.n_mb
     ipcm_flag = np.zeros(n_mb, np.uint8)
     ipcm_buf = np.zeros((1, 384), np.uint8)
@@ -355,9 +350,11 @@ def recon_intra_mbs_native(y, u, v, fs, intra_list, constrained: bool):
             ipcm_buf[idx, 256:320] = np.asarray(pu, np.uint8).reshape(-1)
             ipcm_buf[idx, 320:] = np.asarray(pv, np.uint8).reshape(-1)
     mb_list = np.ascontiguousarray(intra_list, np.int32)
+    coeffs8 = (fs.coeffs8 if fs.coeffs8 is not None
+               else np.zeros((1, 4, 64), np.int32))
     arrs = [y, u, v, fs.mb_type, fs.slice_id, fs.i16_mode, fs.i4_modes,
             fs.chroma_mode, fs.coeffs_l, fs.coeffs_c, ipcm_buf, ipcm_flag,
-            mb_list]
+            mb_list, coeffs8]
     if y.shape != (16 * fs.mb_h, 16 * fs.mb_w) or \
             u.shape != (8 * fs.mb_h, 8 * fs.mb_w) or v.shape != u.shape or \
             any(p.dtype != np.uint8 for p in (y, u, v)):

@@ -26,6 +26,11 @@ reference that the port reproduces (ROADMAP.md §C): chunked input
 releases the pictures decoded before the first B slice in decode order
 (C8), and the Python intra recon of a picture with I8x8 MBs raises
 TypeError on a chroma mode whose neighbour is missing (C7).
+
+The port is held against the JAX package with openh264_compat=True: the
+JAX decoder reproduces the OpenH264 decoder's B 16x8 / 8x16 BI
+partitions and its deblocking of skipped and direct MBs, where the
+port's default follows clause 8 (tests/test_torch_x264_high.py).
 """
 
 import functools
@@ -85,7 +90,8 @@ def _reached(syms):
 @pytest.mark.parametrize("idc,scaling", [(0, False), (1, True), (2, False)])
 def test_cavlc_b_stream_matches_jax(idc, scaling, monkeypatch):
     bs, plans = b_stream(idc=idc, scaling=scaling, seed=idc)
-    got, syms = port_symbols(bs, monkeypatch, ec_mode=0)
+    got, syms = port_symbols(bs, monkeypatch, ec_mode=0,
+                             openh264_compat=True)
     want, jsyms = jax_symbols(bs, monkeypatch)
     _equal(got, want)
     _same(syms, jsyms, B_FIELDS)
@@ -124,7 +130,8 @@ def test_steered_cabac_stream_matches_jax(idc, scaling, rows, monkeypatch):
     bs = steered_cabac_stream(_cabac_ip(), idc=idc, scaling=scaling,
                               seed=idc + 3 * bool(rows),
                               rows_per_slice=rows)
-    got, syms = port_symbols(bs, monkeypatch, ec_mode=0)
+    got, syms = port_symbols(bs, monkeypatch, ec_mode=0,
+                             openh264_compat=True)
     want, jsyms = jax_symbols(bs, monkeypatch)
     _equal(got, want)
     _same(syms, jsyms, B_FIELDS + CABAC_FIELDS)
@@ -141,7 +148,8 @@ def _decode_or_error(bs, monkeypatch, port):
     TypeError's type or None) of the port's or the JAX decoder."""
     seen = []
     mod, name, dec = ((decoder_mod, "recon_frame_batch",
-                       H264Decoder(device="cpu")) if port else
+                       H264Decoder(device="cpu", openh264_compat=True))
+                      if port else
                       (jax_decoder_mod, "recon_frame", JaxDecoder()))
     orig = getattr(mod, name)
 
@@ -210,10 +218,11 @@ def test_reference_fault_feed_releases_before_first_b():
     console sort the whole stream. Both decoders give the same frames in
     the same order either way."""
     bs, _ = b_stream(idc=2, seed=7)
-    whole = H264Decoder(device="cpu").decode_annexb(bs)
+    whole = H264Decoder(device="cpu", openh264_compat=True).decode_annexb(bs)
     _equal(whole, JaxDecoder().decode_annexb(bs))
     out = []
-    for dec in (H264Decoder(device="cpu"), JaxDecoder()):
+    for dec in (H264Decoder(device="cpu", openh264_compat=True),
+                JaxDecoder()):
         got = []
         for c in _chunks(bs):
             got += dec.feed_annexb(c)
@@ -224,12 +233,15 @@ def test_reference_fault_feed_releases_before_first_b():
 
 
 def test_api_and_console_on_b_stream(tmp_path):
-    """CWelsDecoder in odd-sized chunks gives the JAX CWelsDecoder's
-    frames of a CAVLC B + 8x8 stream, and h264dec the JAX console's file,
-    which holds H264Decoder's frames."""
+    """CWelsDecoder in odd-sized chunks gives H264Decoder's frames of a
+    CAVLC B + 8x8 stream, and the JAX CWelsDecoder those of
+    H264Decoder(openh264_compat=True); h264dec's file holds the former,
+    the JAX console's the latter."""
     from openh264_tpu.api.decoder_api import WelsCreateDecoder as jax_api
     bs, _ = b_stream(idc=1, scaling=True, seed=4)
     want = H264Decoder(device="cpu").decode_annexb(bs)
+    compat = H264Decoder(device="cpu",
+                         openh264_compat=True).decode_annexb(bs)
     out = []
     for dec in (WelsCreateDecoder(device="cpu"), jax_api()):
         assert dec.Initialize() == 0
@@ -237,34 +249,40 @@ def test_api_and_console_on_b_stream(tmp_path):
         for k in range(0, len(bs), 777):
             frames += dec.DecodeFrameNoDelay(bs[k:k + 777])[1]
         out.append(frames + dec.FlushFrame()[1])
-    _equal(*out)
-    assert sorted(f.poc for f in out[0]) == [f.poc for f in want]
+    for got, ref in zip(out, (want, compat)):
+        assert sorted(f.poc for f in got) == [f.poc for f in ref]
+        _equal(sorted(got, key=lambda f: f.poc), ref)
     src = tmp_path / "in.264"
     src.write_bytes(bs)
-    ours, theirs, direct = (tmp_path / n for n in ("a.yuv", "b.yuv",
-                                                     "c.yuv"))
+    ours, theirs, direct, direct_compat = (
+        tmp_path / n for n in ("a.yuv", "b.yuv", "c.yuv", "d.yuv"))
     assert h264dec.main([str(src), str(ours)], device="cpu") == 0
     assert jax_h264dec.main([str(src), str(theirs)]) == 0
     write_yuv(want, direct)
-    assert ours.read_bytes() == theirs.read_bytes() == direct.read_bytes()
+    write_yuv(compat, direct_compat)
+    assert ours.read_bytes() == direct.read_bytes()
+    assert theirs.read_bytes() == direct_compat.read_bytes()
 
 
 def test_reference_fault_intra_missing_neighbour():
-    """A fault of the JAX decoder that the port reproduces: a picture with
-    an I8x8 MB takes the per-MB Python intra recon for all its intra MBs
-    (recon_batch.py:221-228), whose chroma predictor
-    (oracle/intra.py:219) indexes the missing top row of an MB on the
-    picture's top edge that asks for vertical chroma prediction: both
-    decoders raise TypeError (out of the recon, which is not concealed),
-    where the reference's C refuses the mode and conceals."""
+    """A fault of the JAX decoder that the port reproduces under
+    openh264_compat: a picture with an I8x8 MB takes the per-MB Python
+    intra recon for all its intra MBs (recon_batch.py:221-228), whose
+    chroma predictor (oracle/intra.py:219) indexes the missing top row of
+    an MB on the picture's top edge that asks for vertical chroma
+    prediction: both decoders raise TypeError (out of the recon, which
+    is not concealed), where the reference's C refuses the mode and
+    conceals. By default the port's host C intra recon takes the picture
+    and predicts from zeros, as it does in a picture without I8x8."""
     n_mb = 6 * 4
     plan = ["i8x8"] + ["skip"] * (n_mb - 1)
     bs, _ = b_stream(seed=1, n_pairs=1, plans=[plan], chroma_mode=2)
     with pytest.raises(TypeError):
-        H264Decoder(device="cpu").decode_annexb(bs)
+        H264Decoder(device="cpu", openh264_compat=True).decode_annexb(bs)
     with pytest.raises(TypeError):
         JaxDecoder().decode_annexb(bs)
+    assert len(H264Decoder(device="cpu").decode_annexb(bs)) == 3
     # with DC chroma the same picture decodes alike
     bs, _ = b_stream(seed=1, n_pairs=1, plans=[plan], chroma_mode=0)
-    _equal(H264Decoder(device="cpu").decode_annexb(bs),
+    _equal(H264Decoder(device="cpu", openh264_compat=True).decode_annexb(bs),
            JaxDecoder().decode_annexb(bs))

@@ -10,7 +10,11 @@ byte (tolerance 0), on the CPU:
   coefficients, values that wrap int16 included;
 - decoder/recon_oracle.py::recon_intra_mb, the per-MB Python intra
   recon of a picture with I8x8 MBs, against the JAX recon_oracle on
-  seeded FrameSymbols of I8x8, I4x4, I16x16 and IPCM MBs in two slices.
+  seeded FrameSymbols of I8x8, I4x4, I16x16 and IPCM MBs in two slices;
+- the host C intra recon (native.recon_intra_mbs_native), which takes
+  I8x8 MBs too, against that Python recon on the same symbols, every
+  8x8 mode at every neighbour pattern of a picture's and a slice's
+  edges.
 """
 
 import itertools
@@ -145,3 +149,23 @@ def test_recon_intra_mb_matches_jax(seed, constrained):
     for c in "yuv":
         np.testing.assert_array_equal(getattr(hp, c), getattr(st, c))
     assert not np.array_equal(hp.y, planes[0])
+
+
+@pytest.mark.parametrize("seed,constrained", [(0, False), (1, False),
+                                              (2, True), (3, False)])
+def test_native_intra_recon_with_i8x8_matches_python(seed, constrained):
+    """The host C recon of every intra MB, I8x8 included, equals the
+    per-MB Python recon, into the same seeded planes."""
+    from openh264_tpu_torch.native import recon_intra_mbs_native
+    rng = np.random.default_rng(200 + seed)
+    planes = [rng.integers(0, 256, s, np.uint8)
+              for s in ((64, 96), (32, 48), (32, 48))]
+    fs = _intra_symbols(seed, TFS)
+    assert (fs.mb_type == 3).any()
+    hp = tro.HostPlanes(fs, *(p.copy() for p in planes))
+    for idx in range(fs.n_mb):
+        tro.recon_intra_mb(hp, idx, constrained)
+    got = [p.copy() for p in planes]
+    recon_intra_mbs_native(*got, fs, np.arange(fs.n_mb), constrained)
+    for g, w in zip(got, (hp.y, hp.u, hp.v)):
+        np.testing.assert_array_equal(g, w)

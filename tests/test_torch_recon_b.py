@@ -3,7 +3,8 @@ the 8x8 transform, byte for byte (tolerance 0), on the CPU:
 - decoder/recon_batch.py against the JAX package's recon_batch.py on
   seeded B FrameSymbols: L0, L1 and BI 4x4 blocks over three reference
   pictures, B16x8 / B8x16 MBs with BI partitions (the reference's
-  GetInterBPred behaviour), plain average, explicit and implicit
+  GetInterBPred behaviour under openh264_compat, both lists by
+  default), plain average, explicit and implicit
   weights per slice, inter MBs with the 8x8 transform, and intra MBs
   with I8x8 among them (the Python intra recon) or without (host C);
 - encoder/deblock_host.py (the deblock kernel's inputs, 8x8-transform
@@ -123,11 +124,21 @@ def test_recon_batch_b_matches_jax(seed, wmodes, intra8):
     assert quirk.any() and (jfs.transform8 & (jfs.mb_type >= 4)).any()
     assert (jfs.mb_type == 3).any() == intra8
     want = jrb.recon_frame_batch(jfs, jrefs)
-    got = trb.recon_frame_batch(_b_symbols(seed, TFS, wmodes, intra8), trefs,
-                                False, torch.device("cpu"))
+    tfs = _b_symbols(seed, TFS, wmodes, intra8)
+    tfs.openh264_compat = True      # the JAX module's BI partitions
+    got = trb.recon_frame_batch(tfs, trefs, False, torch.device("cpu"))
     for c in "yuv":
         np.testing.assert_array_equal(getattr(got, c).numpy(),
                                       getattr(want, c))
+    # by default a BI partition of a B16x8 / B8x16 MB is predicted from
+    # both lists (clause 8.4.2): those MBs move, and intra MBs that
+    # predict from them, nothing else
+    tfs = _b_symbols(seed, TFS, wmodes, intra8)
+    plain = trb.recon_frame_batch(tfs, trefs, False, torch.device("cpu"))
+    moved = (plain.y.numpy() != want.y).reshape(4, 16, 6, 16).any(
+        (1, 3)).reshape(-1)
+    assert (moved & quirk).any() and not (moved & ~quirk
+                                          & (jfs.mb_type >= 4)).any()
 
 
 def _deblock_symbols(seed, fs_cls, dd):

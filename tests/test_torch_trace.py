@@ -187,10 +187,13 @@ def test_decoder_picture_spans(name):
         assert [k.name for k in _children(spans, deb)] == ["deblock.bs",
                                                            "deblock.kernel"]
         assert all(k.frame == p.frame for k in _children(spans, p))
-        # counters: every MB of the picture in one class
+        # counters: every MB of the picture in one class, and the B /
+        # 8x8 / weighted features (none in these streams)
         c = counters[p.id]
-        assert sum(c.values()) == n_mb
-        assert set(c) == {"skip", "inter", "i4x4", "i8x8", "i16x16", "pcm"}
+        classes = {"skip", "inter", "i4x4", "i8x8", "i16x16", "pcm"}
+        assert sum(c[k] for k in classes) == n_mb
+        assert set(c) == classes | {"direct", "bipred", "t8x8", "weighted"}
+        assert c["direct"] == c["bipred"] == c["weighted"] == 0
     assert pics[0].attrs["idr"] and counters[pics[0].id]["inter"] == 0
     # the feed span holds the pictures its call finished, flush the rest
     (feed,) = _named(spans, "decoder.feed")

@@ -1,52 +1,86 @@
-/* Host C of the port's decoder: the CABAC slice-data parser of I and P
- * slices.
+/* Host C of the port's decoder: the CABAC slice-data parser of I, P and
+ * B slices, with the 8x8 transform and B direct prediction.
  *
  * Built with the host compiler by openh264_tpu_torch/_build.py and bound
  * with ctypes by openh264_tpu_torch/native.py (parse_cabac_slice_native).
  * Nothing here runs on the card.
  *
- * It parses one whole CABAC I or P slice, from the end of its header to
+ * It parses one whole CABAC slice, from the end of its header to
  * end_of_slice_flag, into the FrameSymbols arrays, and mirrors the
  * per-MB Python parser (decoder/slice_dec_cabac.py: decode_slice_mbs_cabac
- * and its helpers, with the MV prediction of decoder/mvpred.py) statement
- * for statement, as csrc/parse_cavlc.c mirrors decoder/slice_dec.py: the
- * same arrays get the same values in the same order, so a slice that
- * fails leaves what the Python parser leaves, and the engine ends at the
- * same bit. The arithmetic engine is the spec's (9.3.3.2) bit for bit,
- * the residual block loop that of csrc/cabac_residual.c, copied here so
- * that one engine counts every bin.
+ * and its helpers, with the MV prediction of decoder/mvpred.py and the
+ * direct prediction of slice_dec.apply_direct over decoder/direct.py)
+ * statement for statement, as csrc/parse_cavlc.c mirrors
+ * decoder/slice_dec.py: the same arrays get the same values in the same
+ * order, so a slice that fails leaves what the Python parser leaves, and
+ * the engine ends at the same bit. The arithmetic engine is the spec's
+ * (9.3.3.2) bit for bit, the residual block loop that of
+ * csrc/cabac_residual.c, copied here so that one engine counts every bin.
  *
- * Scope: I and P slices without the 8x8 transform and without FMO, in
- * raster order (decoder/slice_dec_cabac.py routes B slices, a PPS with
- * transform_8x8_mode and FMO to its Python parser).
+ * Scope: I, P and B slices, with or without transform_8x8_mode, spatial
+ * and temporal direct, in raster order. FMO slices go to the Python
+ * parser (decoder/slice_dec_cabac.py routes them). The B and 8x8 syntax
+ * runs only where the slice type and the PPS ask for it.
  */
 
 #include <stdint.h>
 #include <stddef.h>
 #include <string.h>
 
+/* the engine's bins and the neighbour lookups are inlined wherever they
+ * are called, whatever the compiler's size heuristics make of a unit
+ * this large */
+#define ALWAYS_INLINE inline __attribute__((always_inline))
+
 /* ctxIdx offsets (decoder/cabac.py, the spec's ctxIdx space) */
 enum {
-    CTX_MB_TYPE_I = 3, CTX_SKIP = 11, CTX_SUBMB_TYPE = 21, CTX_MVD = 40,
-    CTX_REF_NO = 54, CTX_DELTA_QP = 60, CTX_CIPR = 64, CTX_IPR = 68,
-    CTX_CBP = 73, CTX_CBF = 85, CTX_MAP = 105, CTX_LAST = 166,
-    CTX_ONE = 227, CTX_ABS = 232, N_CTX = 460
+    CTX_MB_TYPE_I = 3, CTX_SKIP = 11, CTX_SUBMB_TYPE = 21, CTX_B_SKIP = 24,
+    CTX_MB_TYPE_B = 27, CTX_MB_TYPE_B_INTRA = 32, CTX_B_SUBMB_TYPE = 36,
+    CTX_MVD = 40, CTX_REF_NO = 54, CTX_DELTA_QP = 60, CTX_CIPR = 64,
+    CTX_IPR = 68, CTX_CBP = 73, CTX_CBF = 85, CTX_MAP = 105, CTX_LAST = 166,
+    CTX_ONE = 227, CTX_ABS = 232, CTX_TS8 = 399, CTX_MAP_8x8 = 402,
+    CTX_LAST_8x8 = 417, CTX_ONE_8x8 = 426, CTX_ABS_8x8 = 431, N_CTX = 460
 };
 
 /* residual categories and their tables (decoder/cabac.py) */
-enum { I16_DC = 1, I16_AC = 2, LUMA_4x4 = 3, CHROMA_DC = 4, CHROMA_AC = 5 };
-static const int MAX_POS[6] = {0, 15, 14, 15, 3, 14};
-static const int MAX_C2[6] = {0, 4, 4, 4, 3, 4};
+enum { I16_DC = 1, I16_AC = 2, LUMA_4x4 = 3, CHROMA_DC = 4, CHROMA_AC = 5,
+       LUMA_8x8 = 6 };
+static const int MAX_POS[7] = {0, 15, 14, 15, 3, 14, 63};
+static const int MAX_C2[7] = {0, 4, 4, 4, 3, 4, 4};
 static const int OFF_CBF[6] = {0, 0, 4, 8, 12, 16};
 static const int OFF_MAP[6] = {0, 0, 15, 29, 44, 47};
 static const int OFF_ONE[6] = {0, 0, 10, 20, 30, 39};
 
+/* Table 9-43 frame-coded 8x8 significance / last contexts */
+static const int SIG8[64] = {
+    0, 1, 2, 3, 4, 5, 5, 4, 4, 3, 3, 4, 4, 4, 5, 5,
+    4, 4, 4, 4, 3, 3, 6, 7, 7, 7, 8, 9, 10, 9, 8, 7,
+    7, 6, 11, 12, 13, 11, 6, 7, 8, 9, 14, 10, 9, 8, 6, 11,
+    12, 13, 11, 6, 9, 14, 10, 9, 11, 12, 13, 11, 14, 10, 12, 14};
+static const int LAST8[64] = {
+    0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+    2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+    3, 3, 3, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4, 4, 4, 4,
+    5, 5, 5, 5, 6, 6, 6, 6, 7, 7, 7, 7, 8, 8, 8, 8};
+
 /* mb_type classes (decoder/framedata.py) */
 enum { T_I4 = 0, T_I16 = 1, T_IPCM = 2, T_I8 = 3, T_P16 = 4, T_P168 = 5,
-       T_P816 = 6, T_P88 = 7, T_PSKIP = 8, T_BSKIP = 13 };
+       T_P816 = 6, T_P88 = 7, T_PSKIP = 8, T_B16 = 9, T_B168 = 10,
+       T_B816 = 11, T_B88 = 12, T_BSKIP = 13, T_BDIRECT = 14 };
 
 static const int ZS2R[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13,
                              10, 11, 14, 15};
+
+/* two-partition B mb_type 4..21: the modes (0 L0, 1 L1, 2 BI) of its
+ * partitions (slice_dec._B_TWOPART_MODES) */
+static const int B_TWOPART[9][2] = {{0, 0}, {1, 1}, {0, 1}, {1, 0}, {0, 2},
+                                    {1, 2}, {2, 0}, {2, 1}, {2, 2}};
+/* B sub_mb_type 0..12: mode (-1 direct), partitions, pw, ph in 4x4
+ * blocks (slice_dec._B_SUB) */
+static const int B_SUB[13][4] = {
+    {-1, 4, 1, 1}, {0, 1, 2, 2}, {1, 1, 2, 2}, {2, 1, 2, 2}, {0, 2, 2, 1},
+    {0, 2, 1, 2}, {1, 2, 2, 1}, {1, 2, 1, 2}, {2, 2, 2, 1}, {2, 2, 1, 2},
+    {0, 4, 1, 1}, {1, 4, 1, 1}, {2, 4, 1, 1}};
 
 /* ---------- arithmetic engine (decoder/cabac.py CabacEngine) ----------
  * The Python engine's offset is a Python int: a stream that breaks the
@@ -69,7 +103,7 @@ typedef struct {
     const int32_t *state_trans; /* [64*2] (LPS, MPS) */
 } Eng;
 
-static inline int rd_bit(const uint8_t *data, long long nbits,
+static ALWAYS_INLINE int rd_bit(const uint8_t *data, long long nbits,
                          long long *pos) {
     int b = 0;
     if (*pos < nbits)   /* past-the-end bits read as 0 */
@@ -79,7 +113,7 @@ static inline int rd_bit(const uint8_t *data, long long nbits,
 }
 
 /* offset = (offset << 1) | the next bit, as a Python int */
-static inline void shift_in(Eng *e) {
+static ALWAYS_INLINE void shift_in(Eng *e) {
     int b = rd_bit(e->data, e->nbits, &e->pos);
     if (e->offset < OFF_SAT && e->offset > -OFF_SAT)
         e->offset = e->offset * 2 + b;
@@ -107,7 +141,7 @@ static void ctx_init(Eng *e, const int32_t *init_mn, int is_i, int idc,
     }
 }
 
-static inline int decision(Eng *e, int idx) {
+static ALWAYS_INLINE int decision(Eng *e, int idx) {
     int state = e->state[idx];
     long long lps = e->range_lps[state * 4 + ((e->range >> 6) & 3)];
     int bit;
@@ -130,7 +164,7 @@ static inline int decision(Eng *e, int idx) {
     return bit;
 }
 
-static inline int bypass(Eng *e) {
+static ALWAYS_INLINE int bypass(Eng *e) {
     e->bins++;
     shift_in(e);
     if (e->offset >= e->range) {
@@ -140,7 +174,7 @@ static inline int bypass(Eng *e) {
     return 0;
 }
 
-static inline int terminate(Eng *e) {
+static ALWAYS_INLINE int terminate(Eng *e) {
     e->bins++;
     e->range -= 2;
     if (e->offset >= e->range) return 1;   /* pos stays at the flush */
@@ -170,12 +204,12 @@ typedef struct {
     long long pos, range, offset;
 } REng;
 
-static inline long long r_shift_in(REng *r) {
+static ALWAYS_INLINE long long r_shift_in(REng *r) {
     int b = rd_bit(r->e->data, r->e->nbits, &r->pos);
     return (long long)(((unsigned long long)r->offset << 1) | (unsigned)b);
 }
 
-static inline int r_decision(REng *r, int idx) {
+static ALWAYS_INLINE int r_decision(REng *r, int idx) {
     Eng *e = r->e;
     int state = e->state[idx];
     long long lps = e->range_lps[state * 4 + ((r->range >> 6) & 3)];
@@ -199,7 +233,7 @@ static inline int r_decision(REng *r, int idx) {
     return bit;
 }
 
-static inline int r_bypass(REng *r) {
+static ALWAYS_INLINE int r_bypass(REng *r) {
     r->e->bins++;
     r->offset = r_shift_in(r);
     if (r->offset >= r->range) {
@@ -225,10 +259,13 @@ typedef struct {
     Eng e;
     /* tables */
     const int64_t *dq4;           /* [6][52][16] effective (DequantTables.eff4) */
+    const int64_t *dq8;           /* [2][52][64] effective (DequantTables.eff8) */
     const int32_t *chroma_qp;     /* [52] */
     const int32_t *zigzag;        /* [16] */
+    const int32_t *zigzag8;       /* [64] */
     const int32_t *cbp_i16;       /* [6] */
     const int32_t *l0_pic_ids;    /* [n_l0], -1 for a missing picture */
+    const int32_t *l1_pic_ids;    /* [n_l1], -1 for a missing picture */
     /* FrameSymbols */
     int32_t *mb_type, *slice_id;
     uint8_t *transform8;
@@ -239,10 +276,12 @@ typedef struct {
     int8_t *pred_mode;            /* [n][4] */
     int32_t *coeffs_l;            /* [n][16][16] */
     int32_t *coeffs_c;            /* [n][2][4][16] */
+    int32_t *coeffs8;             /* [n][4][64] */
     int32_t *nzc_l;               /* [H4][W4] */
     int32_t *nzc_c;               /* [2][H2][W2] */
     int32_t *disable_deblock, *alpha_off, *beta_off;
     uint8_t *mb_correct;
+    uint8_t *mb16, *sub_direct, *ibs_mode;   /* [n] */
     int32_t *i4_grid;             /* [H4][W4] */
     int32_t *gmv;                 /* [2][H4][W4][2] */
     int32_t *gref;                /* [2][H4][W4] */
@@ -253,15 +292,35 @@ typedef struct {
     int8_t *gdirect;              /* [H4][W4] */
     uint8_t *ipcm_buf;            /* [n][384] */
     uint8_t *ipcm_flag;           /* [n] */
+    /* the colocated picture (direct.py DirectContext.col), its grids
+     * [col_h4][col_w4] */
+    const int32_t *col_mv0, *col_mv1;        /* [.][.][2] */
+    const int32_t *col_ref0, *col_ref1, *col_refpic0, *col_refpic1;
+    const uint8_t *col_intra;
+    const uint8_t *col_mb16;      /* [col_n16], NULL when it has none */
+    const int32_t *dsf;           /* [n_l0] DistScaleFactor per L0 index */
     /* params */
     int first_mb, mb_w, mb_h, w4, h4, slice_idx;
-    int num_ref_l0, n_l0, constrained, ddb_idc, a_off, b_off, coff0, coff1;
+    int num_ref_l0, n_l0, num_ref_l1, n_l1;
+    int constrained, ddb_idc, a_off, b_off, coff0, coff1;
+    int t8_mode, spatial, direct_8x8, compat;
+    int has_col, col_long_term, col_w4, col_h4, col_n16;
     int cur_qp, last_dqp;
-    int err;                      /* 0 ok, 2 invalid (ValueError), 3 a QP
-                                     outside the tables (IndexError), 4
-                                     an offset past int64 (OverflowError) */
+    int err;                      /* 0 ok, 2 invalid (ValueError), 3 an
+                                     index outside a table (IndexError),
+                                     4 an offset past int64, 6 a temporal
+                                     direct MV past int32 (OverflowError),
+                                     5 temporal direct without a
+                                     colocated picture (AttributeError) */
     int residual_seen;            /* an MB reached its residual's QP */
+    int used8;                    /* an MB reached the 8x8 residual */
+    /* spatial direct's refs and MVs of MB sd_mb (SliceDecodeContext.
+     * spatial_direct_mb) */
+    int sd_mb, sd_ref[2], sd_use[2];
+    int32_t sd_mv[2][2];
 } PC;
+
+#define GI(c, lx, y, x) (((lx) * (c)->h4 + (y)) * (c)->w4 + (x))
 
 /* ---------- neighbours ---------- */
 static inline int mb_avail(PC *c, int mbx, int mby) {
@@ -295,7 +354,7 @@ static inline int pred_i4_mode(PC *c, int gx, int gy) {
 }
 
 /* ---------- MV prediction over the global grids (mvpred.py) ---------- */
-static inline void blk_info(PC *c, int bx, int by, int lx, int cur_mb,
+static ALWAYS_INLINE void blk_info(PC *c, int bx, int by, int lx, int cur_mb,
                             int *avail, int *ref, int32_t mvout[2]) {
     int w4 = c->w4, h4 = c->h4;
     mvout[0] = mvout[1] = 0;
@@ -309,9 +368,9 @@ static inline void blk_info(PC *c, int bx, int by, int lx, int cur_mb,
         return;
     }
     *avail = 1;
-    *ref = c->gref[lx * h4 * w4 + by * w4 + bx];
-    mvout[0] = c->gmv[(lx * h4 * w4 + by * w4 + bx) * 2];
-    mvout[1] = c->gmv[(lx * h4 * w4 + by * w4 + bx) * 2 + 1];
+    *ref = c->gref[GI(c, lx, by, bx)];
+    mvout[0] = c->gmv[GI(c, lx, by, bx) * 2];
+    mvout[1] = c->gmv[GI(c, lx, by, bx) * 2 + 1];
 }
 
 static inline int32_t med3(int32_t a, int32_t b, int32_t cc) {
@@ -366,16 +425,19 @@ static void pred_skip_mv(PC *c, int gx, int gy, int cur_mb, int32_t out[2]) {
     pred_mv(c, gx, gy, 4, 4, 0, 0, cur_mb, out);
 }
 
-static void set_partition(PC *c, int gx, int gy, int pw, int ph, int lx,
-                          int ref_idx, int32_t mv0, int32_t mv1) {
-    int w4 = c->w4, h4 = c->h4;
+/* inlined at each call, so that the P path's calls take their list as
+ * a constant */
+static ALWAYS_INLINE void
+set_partition(PC *c, int gx, int gy, int pw, int ph, int lx, int ref_idx,
+              int32_t mv0, int32_t mv1) {
+    int w4 = c->w4;
     for (int y = gy; y < gy + ph; y++)
         for (int x = gx; x < gx + pw; x++) {
-            c->gmv[(lx * h4 * w4 + y * w4 + x) * 2] = mv0;
-            c->gmv[(lx * h4 * w4 + y * w4 + x) * 2 + 1] = mv1;
-            c->gref[lx * h4 * w4 + y * w4 + x] = ref_idx;
+            c->gmv[GI(c, lx, y, x) * 2] = mv0;
+            c->gmv[GI(c, lx, y, x) * 2 + 1] = mv1;
+            c->gref[GI(c, lx, y, x)] = ref_idx;
             c->gwritten[y * w4 + x] = 1;
-            c->grefw[lx * h4 * w4 + y * w4 + x] = 1;
+            c->grefw[GI(c, lx, y, x)] = 1;
         }
 }
 
@@ -392,26 +454,25 @@ static void mb_common_init(PC *c, int mb) {
 }
 
 static void finish_inter_mb(PC *c, int mb) {
-    int w4 = c->w4, h4 = c->h4;
     int gy = (mb / c->mb_w) * 4, gx = (mb % c->mb_w) * 4;
     for (int lx = 0; lx < 2; lx++)
         for (int j = 0; j < 16; j++) {
             int y = gy + j / 4, x = gx + j % 4;
-            c->mv[((mb * 2 + lx) * 16 + j) * 2] =
-                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2];
+            c->mv[((mb * 2 + lx) * 16 + j) * 2] = c->gmv[GI(c, lx, y, x) * 2];
             c->mv[((mb * 2 + lx) * 16 + j) * 2 + 1] =
-                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2 + 1];
+                c->gmv[GI(c, lx, y, x) * 2 + 1];
         }
     for (int q = 0; q < 4; q++) {
         int qy = gy + (q / 2) * 2, qx = gx + (q % 2) * 2;
-        int r0 = c->gref[qy * w4 + qx];
-        int r1 = c->gref[h4 * w4 + qy * w4 + qx];
+        int r0 = c->gref[GI(c, 0, qy, qx)];
+        int r1 = c->gref[GI(c, 1, qy, qx)];
         int8_t s0 = (int8_t)r0, s1 = (int8_t)r1;
         c->refidx[(mb * 2 + 0) * 4 + q] = s0;
         c->refidx[(mb * 2 + 1) * 4 + q] = s1;
         c->ref_pic[(mb * 2 + 0) * 4 + q] =
             (r0 >= 0 && r0 < c->n_l0) ? c->l0_pic_ids[r0] : -1;
-        c->ref_pic[(mb * 2 + 1) * 4 + q] = -1;   /* P: list 1 is empty */
+        c->ref_pic[(mb * 2 + 1) * 4 + q] =
+            (r1 >= 0 && r1 < c->n_l1) ? c->l1_pic_ids[r1] : -1;
         c->pred_mode[mb * 4 + q] =
             (s0 >= 0 && s1 >= 0) ? 2 : (s1 >= 0 ? 1 : (s0 >= 0 ? 0 : -1));
     }
@@ -419,17 +480,16 @@ static void finish_inter_mb(PC *c, int mb) {
 
 static void mark_intra_grids(PC *c, int mb) {
     int mbx = mb % c->mb_w, mby = mb / c->mb_w;
-    int w4 = c->w4, h4 = c->h4;
     for (int lx = 0; lx < 2; lx++)
         for (int y = mby * 4; y < mby * 4 + 4; y++)
             for (int x = mbx * 4; x < mbx * 4 + 4; x++) {
-                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2] = 0;
-                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2 + 1] = 0;
-                c->gref[lx * h4 * w4 + y * w4 + x] = -1;
+                c->gmv[GI(c, lx, y, x) * 2] = 0;
+                c->gmv[GI(c, lx, y, x) * 2 + 1] = 0;
+                c->gref[GI(c, lx, y, x)] = -1;
             }
     for (int y = mby * 4; y < mby * 4 + 4; y++)
         for (int x = mbx * 4; x < mbx * 4 + 4; x++)
-            c->gwritten[y * w4 + x] = 1;
+            c->gwritten[y * c->w4 + x] = 1;
 }
 
 static void set_nzc_l(PC *c, int mb, int v) {
@@ -447,15 +507,21 @@ static void set_nzc_c(PC *c, int mb, int v) {
                 c->nzc_c[comp * (c->mb_h * 2) * w2 + y * w2 + x] = v;
 }
 
+static void fill_gdirect(PC *c, int gx, int gy, int n, int v) {
+    for (int y = gy; y < gy + n; y++)
+        for (int x = gx; x < gx + n; x++)
+            c->gdirect[y * c->w4 + x] = (int8_t)v;
+}
+
 /* ---------- syntax elements (CabacSliceDecoder) ---------- */
-static int skip_flag(PC *c, int mb) {
+static int skip_flag(PC *c, int mb, int is_b) {
     int left, top, inc = 0;
     left_top(c, mb, &left, &top);
     if (left >= 0 && c->mb_type[left] != T_PSKIP && c->mb_type[left] != T_BSKIP)
         inc++;
     if (top >= 0 && c->mb_type[top] != T_PSKIP && c->mb_type[top] != T_BSKIP)
         inc++;
-    return decision(&c->e, CTX_SKIP + inc);
+    return decision(&c->e, (is_b ? CTX_B_SKIP : CTX_SKIP) + inc);
 }
 
 /* raw intra mb_type 0..25 of an I slice */
@@ -480,7 +546,7 @@ static int mb_type_i_slice(PC *c, int mb) {
     return v;
 }
 
-/* the intra suffix inside a P mb_type */
+/* the intra suffix inside a P or B mb_type */
 static int intra_mb_type_suffix(PC *c, int base) {
     Eng *e = &c->e;
     if (!decision(e, base)) return 0;
@@ -505,12 +571,61 @@ static int mb_type_p_slice(PC *c) {
     return decision(e, CTX_SKIP + 5) ? 3 : 0;
 }
 
+/* raw B mb_type: 0..22 inter, 23 + the intra mb_type */
+static int mb_type_b_slice(PC *c, int mb) {
+    Eng *e = &c->e;
+    int left, top, inc = 0;
+    left_top(c, mb, &left, &top);
+    if (left >= 0 && c->mb_type[left] != T_BSKIP &&
+        c->mb_type[left] != T_BDIRECT)
+        inc++;
+    if (top >= 0 && c->mb_type[top] != T_BSKIP && c->mb_type[top] != T_BDIRECT)
+        inc++;
+    if (!decision(e, CTX_MB_TYPE_B + inc)) return 0;
+    if (!decision(e, CTX_MB_TYPE_B + 3))
+        return 1 + decision(e, CTX_MB_TYPE_B + 5);
+    int v = decision(e, CTX_MB_TYPE_B + 4) << 3;
+    v |= decision(e, CTX_MB_TYPE_B + 5) << 2;
+    v |= decision(e, CTX_MB_TYPE_B + 5) << 1;
+    v |= decision(e, CTX_MB_TYPE_B + 5);
+    if (v < 8) return v + 3;
+    if (v == 13) return 23 + intra_mb_type_suffix(c, CTX_MB_TYPE_B_INTRA);
+    if (v == 14) return 11;
+    if (v == 15) return 22;
+    v = (v << 1) | decision(e, CTX_MB_TYPE_B + 5);
+    return v - 4;
+}
+
 static int sub_mb_type_p(PC *c) {
     Eng *e = &c->e;
     if (decision(e, CTX_SUBMB_TYPE)) return 0;
     if (decision(e, CTX_SUBMB_TYPE + 1))
         return 3 - decision(e, CTX_SUBMB_TYPE + 2);
     return 1;
+}
+
+static int sub_mb_type_b(PC *c) {
+    Eng *e = &c->e;
+    if (!decision(e, CTX_B_SUBMB_TYPE)) return 0;
+    if (!decision(e, CTX_B_SUBMB_TYPE + 1))
+        return 1 + decision(e, CTX_B_SUBMB_TYPE + 3);
+    int v = 3;
+    if (decision(e, CTX_B_SUBMB_TYPE + 2)) {
+        if (decision(e, CTX_B_SUBMB_TYPE + 3))
+            return 11 + decision(e, CTX_B_SUBMB_TYPE + 3);
+        v += 4;
+    }
+    v += 2 * decision(e, CTX_B_SUBMB_TYPE + 3);
+    v += decision(e, CTX_B_SUBMB_TYPE + 3);
+    return v;
+}
+
+static int transform8_flag(PC *c, int mb) {
+    int left, top, inc = 0;
+    left_top(c, mb, &left, &top);
+    if (left >= 0 && c->transform8[left]) inc++;
+    if (top >= 0 && c->transform8[top]) inc++;
+    return decision(&c->e, CTX_TS8 + inc);
 }
 
 /* -1: use the predicted mode, else rem 0..7 */
@@ -540,47 +655,55 @@ static int intra_chroma_pred_mode(PC *c, int mb) {
     return 2 + decision(e, CTX_CIPR + 3);
 }
 
-/* a neighbour block's (ref_idx > 0) for the ref_idx context */
-static int ref_ngb(PC *c, int mb, int nx, int ny) {
+/* a neighbour block's list-lx (ref_idx > 0) for the ref_idx context, and
+ * in *dir its direct / skip flag */
+static int ref_ngb(PC *c, int mb, int lx, int nx, int ny, int *dir) {
+    *dir = 0;
     if (nx < 0 || ny < 0) return 0;
     int nmb = (ny / 4) * c->mb_w + (nx / 4);
     if (nmb == mb) {
-        if (!c->grefw[ny * c->w4 + nx]) return 0;
+        if (!c->grefw[GI(c, lx, ny, nx)]) return 0;
     } else {
         if (c->slice_id[nmb] != c->slice_id[mb]) return 0;
         if (c->mb_type[nmb] == T_IPCM) return 0;
     }
-    return c->gref[ny * c->w4 + nx] > 0;
+    *dir = c->gdirect[ny * c->w4 + nx] != 0;
+    return c->gref[GI(c, lx, ny, nx)] > 0;
 }
 
-/* clamp a ref_idx to one of list 0's pictures, else ref 0 */
-static int clamp_ref(PC *c, int r) {
-    return (r >= 0 && r < c->n_l0 && c->l0_pic_ids[r] >= 0) ? r : 0;
+/* clamp a ref_idx to one of list lx's pictures, else ref 0 */
+static int clamp_ref(PC *c, int lx, int r) {
+    int n = lx ? c->n_l1 : c->n_l0;
+    const int32_t *ids = lx ? c->l1_pic_ids : c->l0_pic_ids;
+    return (r >= 0 && r < n && ids[r] >= 0) ? r : 0;
 }
 
-static int ref_idx(PC *c, int mb, int gx, int gy) {
+static int ref_idx(PC *c, int mb, int lx, int gx, int gy, int is_b) {
     Eng *e = &c->e;
-    if (c->num_ref_l0 <= 1) return 0;
-    int inc = ref_ngb(c, mb, gx - 1, gy) + 2 * ref_ngb(c, mb, gx, gy - 1);
+    if ((lx ? c->num_ref_l1 : c->num_ref_l0) <= 1) return 0;
+    int a_dir, b_dir;
+    int a = ref_ngb(c, mb, lx, gx - 1, gy, &a_dir);
+    int b = ref_ngb(c, mb, lx, gx, gy - 1, &b_dir);
+    int inc = is_b ? 2 * (b && !b_dir) + (a && !a_dir) : a + 2 * b;
     if (!decision(e, CTX_REF_NO + inc)) return 0;
-    if (!decision(e, CTX_REF_NO + 4)) return clamp_ref(c, 1);
+    if (!decision(e, CTX_REF_NO + 4)) return clamp_ref(c, lx, 1);
     int v = 2;
     while (decision(e, CTX_REF_NO + 5)) {
         v++;
         if (v > 32) { c->err = 2; return 0; }   /* runaway ref_idx */
     }
-    return clamp_ref(c, v);
+    return clamp_ref(c, lx, v);
 }
 
-static void note_ref(PC *c, int gx, int gy, int pw, int ph, int ref) {
+static void note_ref(PC *c, int lx, int gx, int gy, int pw, int ph, int ref) {
     for (int y = gy; y < gy + ph; y++)
         for (int x = gx; x < gx + pw; x++) {
-            c->gref[y * c->w4 + x] = ref;
-            c->grefw[y * c->w4 + x] = 1;
+            c->gref[GI(c, lx, y, x)] = ref;
+            c->grefw[GI(c, lx, y, x)] = 1;
         }
 }
 
-static long long amvd(PC *c, int mb, int comp, int nx, int ny) {
+static long long amvd(PC *c, int mb, int lx, int comp, int nx, int ny) {
     if (nx < 0 || ny < 0) return 0;
     int nmb = (ny / 4) * c->mb_w + (nx / 4);
     if (nmb == mb) {
@@ -588,16 +711,17 @@ static long long amvd(PC *c, int mb, int comp, int nx, int ny) {
     } else if (c->slice_id[nmb] != c->slice_id[mb]) {
         return 0;
     }
-    if (c->gref[ny * c->w4 + nx] < 0) return 0;
-    long long v = c->gmvd[(ny * c->w4 + nx) * 2 + comp];
+    if (c->gref[GI(c, lx, ny, nx)] < 0) return 0;
+    long long v = c->gmvd[GI(c, lx, ny, nx) * 2 + comp];
     return v < 0 ? -v : v;
 }
 
-/* list 0 mvd component; c->err on a runaway code */
-static int32_t mvd(PC *c, int mb, int comp, int gx, int gy) {
+/* a list-lx mvd component; c->err on a runaway code */
+static int32_t mvd(PC *c, int mb, int lx, int comp, int gx, int gy) {
     Eng *e = &c->e;
     int base = CTX_MVD + comp * 7;
-    long long s = amvd(c, mb, comp, gx - 1, gy) + amvd(c, mb, comp, gx, gy - 1);
+    long long s = amvd(c, mb, lx, comp, gx - 1, gy) +
+                  amvd(c, mb, lx, comp, gx, gy - 1);
     int inc = s < 3 ? 0 : (s > 32 ? 2 : 1);
     if (!decision(e, base + inc)) return 0;
     /* UEG3 of |mvd| - 1 (CabacEngine.ueg_mv at base + 3) */
@@ -711,8 +835,11 @@ static int cbf(PC *c, int mb, int prop, int gx, int gy, int comp,
 /* the significance map and levels of one block of category prop, in
  * scan order (csrc/cabac_residual.c); returns the coefficient count, or
  * -1 with c->err: 2 on a runaway code, 4 on an offset that int64 does
- * not hold (where the Python parser's handoff raises OverflowError) */
-static int residual_levels(PC *c, int prop, int32_t *sig) {
+ * not hold (where the Python parser's handoff raises OverflowError).
+ * is8 (LUMA_8x8) is a constant at each call, so each category's loop
+ * is compiled apart. */
+static ALWAYS_INLINE int
+residual_core(PC *c, int prop, int32_t *sig, const int is8) {
     Eng *e = &c->e;
     if (e->offset > INT64_MAX || e->offset < INT64_MIN) {
         c->err = 4;
@@ -720,16 +847,18 @@ static int residual_levels(PC *c, int prop, int32_t *sig) {
     }
     REng r = {e, e->pos, e->range, (long long)e->offset};
     int n = MAX_POS[prop] + 1;
-    int map_base = CTX_MAP + OFF_MAP[prop], last_base = CTX_LAST + OFF_MAP[prop];
-    int one_base = CTX_ONE + OFF_ONE[prop], abs_base = CTX_ABS + OFF_ONE[prop];
+    int map_base = is8 ? CTX_MAP_8x8 : CTX_MAP + OFF_MAP[prop];
+    int last_base = is8 ? CTX_LAST_8x8 : CTX_LAST + OFF_MAP[prop];
+    int one_base = is8 ? CTX_ONE_8x8 : CTX_ONE + OFF_ONE[prop];
+    int abs_base = is8 ? CTX_ABS_8x8 : CTX_ABS + OFF_ONE[prop];
     int maxc2 = MAX_C2[prop];
     int i, ncoef = 0, ended = 0;
     for (i = 0; i < n; i++) sig[i] = 0;
     for (i = 0; i < n - 1; i++) {
-        if (r_decision(&r, map_base + i)) {
+        if (r_decision(&r, map_base + (is8 ? SIG8[i] : i))) {
             sig[i] = 1;
             ncoef++;
-            if (r_decision(&r, last_base + i)) {
+            if (r_decision(&r, last_base + (is8 ? LAST8[i] : i))) {
                 ended = 1;
                 break;
             }
@@ -774,11 +903,26 @@ static int residual_levels(PC *c, int prop, int32_t *sig) {
     return ncoef;
 }
 
-/* the luma dequant row of a QP as numpy indexes it: a negative QP
- * counts from the end, one outside -52..51 is c->err 3 */
+static int residual_levels(PC *c, int prop, int32_t *sig) {
+    return residual_core(c, prop, sig, 0);
+}
+
+static int residual_levels8(PC *c, int32_t *sig) {
+    return residual_core(c, LUMA_8x8, sig, 1);
+}
+
+/* a QP's row of numpy's table indexing: a negative QP counts from the
+ * end, one outside -52..51 is c->err 3 */
+static inline int qp_row(PC *c, int qp) {
+    if (qp < -52 || qp > 51) { c->err = 3; return -1; }
+    return qp < 0 ? qp + 52 : qp;
+}
+
+/* the luma dequant row of a QP */
 static const int64_t *luma_dq(PC *c, int intra, int qp) {
-    if (qp < -52 || qp > 51) { c->err = 3; return NULL; }
-    return c->dq4 + (intra ? 0 : 3) * 52 * 16 + (qp < 0 ? qp + 52 : qp) * 16;
+    int row = qp_row(c, qp);
+    if (row < 0) return NULL;
+    return c->dq4 + (intra ? 0 : 3) * 52 * 16 + row * 16;
 }
 
 static inline int32_t wrap16(int64_t x) {
@@ -791,6 +935,48 @@ static void dequant4(const int64_t *dq, const int32_t *blkc, int32_t *dst,
                      int keep_dc) {
     for (int p = keep_dc; p < 16; p++)
         dst[p] = (int32_t)((blkc[p] * dq[p] + 8) >> 4);
+}
+
+/* DequantTables.luma8x8: an 8x8 block of levels in raster order into
+ * dst; -1 with c->err 3 on a QP outside the tables */
+static int dequant8(PC *c, int intra, int qp, const int32_t *lev,
+                    int32_t *dst) {
+    int row = qp_row(c, qp);
+    if (row < 0) return -1;
+    const int64_t *dq = c->dq8 + ((intra ? 0 : 1) * 52 + row) * 64;
+    int q6 = qp >= 0 ? qp / 6 : -((-qp + 5) / 6);    /* Python's qp // 6 */
+    for (int p = 0; p < 64; p++) {
+        int64_t base = lev[p] * dq[p];
+        int64_t v = qp >= 36 ? (int64_t)((uint64_t)base << (q6 - 6))
+                             : (base + ((int64_t)1 << (5 - q6))) >> (6 - q6);
+        dst[p] = (int32_t)v;
+    }
+    return 0;
+}
+
+/* the luma residual of an 8x8-transform MB: one LUMA_8x8 block per
+ * coded 8x8 quadrant (no coded_block_flag). Kept out of store_residual,
+ * whose 4x4 path the I/P slices without the 8x8 transform run. */
+static __attribute__((noinline)) int
+store_luma8x8(PC *c, int mb, int cbp, int intra, int qp) {
+    int mbx = mb % c->mb_w, mby = mb / c->mb_w, w4 = c->w4;
+    int32_t sig[64], blkc[64];
+    c->used8 = 1;
+    for (int blk8 = 0; blk8 < 4; blk8++) {
+        int gx = mbx * 4 + (blk8 % 2) * 2, gy = mby * 4 + (blk8 / 2) * 2;
+        int v = 0;
+        if (cbp & (1 << blk8)) {
+            int tc = residual_levels8(c, sig);
+            if (tc < 0) return -1;
+            for (int j = 0; j < 64; j++) blkc[c->zigzag8[j]] = sig[j];
+            if (dequant8(c, intra, qp, blkc,
+                         c->coeffs8 + (mb * 4 + blk8) * 64)) return -1;
+            v = tc < 16 ? tc : 16;
+        }
+        c->nzc_l[gy * w4 + gx] = c->nzc_l[gy * w4 + gx + 1] = v;
+        c->nzc_l[(gy + 1) * w4 + gx] = c->nzc_l[(gy + 1) * w4 + gx + 1] = v;
+    }
+    return 0;
 }
 
 /* the residual of one MB and its QP (_store_mb_residual_cabac) */
@@ -846,30 +1032,34 @@ static int store_residual(PC *c, int mb, int cbp, int is_i16) {
         }
     }
 
-    for (int k = 0; k < 16; k++) {
-        int raster = ZS2R[k];
-        int bx = raster % 4, by = raster / 4;
-        int gx = mbx * 4 + bx, gy = mby * 4 + by;
-        int blk8 = (by >> 1) * 2 + (bx >> 1);
-        if (!(cbp & (1 << blk8))) {
-            c->nzc_l[gy * w4 + gx] = 0;
-            continue;
-        }
-        int prop = is_i16 ? I16_AC : LUMA_4x4;
-        if (cbf(c, mb, prop, gx, gy, 0, 0)) {
-            if ((tc = residual_levels(c, prop, sig)) < 0) return -1;
-            const int64_t *dq_l = luma_dq(c, intra, qp);
-            if (!dq_l) return -1;
-            memset(blkc, 0, sizeof(blkc));
-            if (is_i16)
-                for (int j = 0; j < 15; j++) blkc[c->zigzag[j + 1]] = sig[j];
-            else
-                for (int j = 0; j < 16; j++) blkc[c->zigzag[j]] = sig[j];
-            dequant4(dq_l, blkc, c->coeffs_l + (mb * 16 + raster) * 16,
-                     is_i16);
-            c->nzc_l[gy * w4 + gx] = tc;
-        } else {
-            c->nzc_l[gy * w4 + gx] = 0;    /* an I16 block keeps its DC */
+    if (c->transform8[mb]) {
+        if (store_luma8x8(c, mb, cbp, intra, qp)) return -1;
+    } else {
+        for (int k = 0; k < 16; k++) {
+            int raster = ZS2R[k];
+            int bx = raster % 4, by = raster / 4;
+            int gx = mbx * 4 + bx, gy = mby * 4 + by;
+            int blk8 = (by >> 1) * 2 + (bx >> 1);
+            if (!(cbp & (1 << blk8))) {
+                c->nzc_l[gy * w4 + gx] = 0;
+                continue;
+            }
+            int prop = is_i16 ? I16_AC : LUMA_4x4;
+            if (cbf(c, mb, prop, gx, gy, 0, 0)) {
+                if ((tc = residual_levels(c, prop, sig)) < 0) return -1;
+                const int64_t *dq_l = luma_dq(c, intra, qp);
+                if (!dq_l) return -1;
+                memset(blkc, 0, sizeof(blkc));
+                if (is_i16)
+                    for (int j = 0; j < 15; j++) blkc[c->zigzag[j + 1]] = sig[j];
+                else
+                    for (int j = 0; j < 16; j++) blkc[c->zigzag[j]] = sig[j];
+                dequant4(dq_l, blkc, c->coeffs_l + (mb * 16 + raster) * 16,
+                         is_i16);
+                c->nzc_l[gy * w4 + gx] = tc;
+            } else {
+                c->nzc_l[gy * w4 + gx] = 0;    /* an I16 block keeps its DC */
+            }
         }
     }
 
@@ -912,8 +1102,155 @@ static int store_residual(PC *c, int mb, int cbp, int is_i16) {
     return 0;
 }
 
+/* ---------- direct prediction (slice_dec.apply_direct, direct.py) ---- */
+/* the colocated block that direct_8x8_inference samples: each 8x8 takes
+ * its outermost corner 4x4 block */
+static inline void corner(PC *c, int *bx, int *by) {
+    if (!c->direct_8x8) return;
+    int mbx = (*bx / 4) * 4, mby = (*by / 4) * 4;
+    *bx = mbx + (*bx - mbx < 2 ? 0 : 3);
+    *by = mby + (*by - mby < 2 ? 0 : 3);
+}
+
+/* the index of colocated block (bx, by), or -1 with c->err 3 where the
+ * colocated picture's grids do not reach it */
+static inline int col_at(PC *c, int bx, int by) {
+    if (bx >= c->col_w4 || by >= c->col_h4) { c->err = 3; return -1; }
+    return by * c->col_w4 + bx;
+}
+
+/* DirectContext.col_zero: colZeroFlag, or -1 with c->err */
+static int col_zero(PC *c, int bx, int by) {
+    if (!c->has_col || c->col_long_term) return 0;
+    int i = col_at(c, bx, by);
+    if (i < 0) return -1;
+    if (c->col_intra[i]) return 0;
+    corner(c, &bx, &by);
+    if ((i = col_at(c, bx, by)) < 0) return -1;
+    const int32_t *mv;
+    int ref_is0;
+    if (c->col_ref0[i] >= 0) {
+        mv = c->col_mv0 + 2 * i;
+        ref_is0 = c->col_ref0[i] == 0;
+    } else {
+        mv = c->col_mv1 + 2 * i;
+        ref_is0 = c->col_ref1[i] == 0;
+    }
+    long long x = mv[0], y = mv[1];
+    return ref_is0 && (x < 0 ? -x : x) <= 1 && (y < 0 ? -y : y) <= 1;
+}
+
+/* DirectContext.spatial_refs for MB mb, computed at its first direct
+ * block: its neighbours lie outside it, so they are final by then */
+static void spatial_mb(PC *c, int mb) {
+    if (c->sd_mb == mb) return;
+    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    for (int lx = 0; lx < 2; lx++) {
+        int aa, ab, ac, ra, rb, rc;
+        int32_t mva[2], mvb[2], mvc[2];
+        blk_info(c, gx - 1, gy, lx, mb, &aa, &ra, mva);
+        blk_info(c, gx, gy - 1, lx, mb, &ab, &rb, mvb);
+        blk_info(c, gx + 4, gy - 1, lx, mb, &ac, &rc, mvc);
+        if (!ac) blk_info(c, gx - 1, gy - 1, lx, mb, &ac, &rc, mvc);
+        int ref = -1;
+        int cand[3] = {aa ? ra : -1, ab ? rb : -1, ac ? rc : -1};
+        for (int k = 0; k < 3; k++)
+            if (cand[k] >= 0 && (ref < 0 || cand[k] < ref)) ref = cand[k];
+        c->sd_ref[lx] = ref;
+        c->sd_mv[lx][0] = c->sd_mv[lx][1] = 0;
+        if (ref >= 0) pred_mv(c, gx, gy, 4, 4, lx, ref, mb, c->sd_mv[lx]);
+    }
+    if (c->sd_ref[0] < 0 && c->sd_ref[1] < 0) {
+        c->sd_ref[0] = c->sd_ref[1] = 0;
+        c->sd_use[0] = c->sd_use[1] = 1;
+    } else {
+        c->sd_use[0] = c->sd_ref[0] >= 0;
+        c->sd_use[1] = c->sd_ref[1] >= 0;
+    }
+    c->sd_mb = mb;
+}
+
+/* DirectContext.temporal_direct of block (bx, by): ref0 and both MVs */
+static int temporal(PC *c, int bx, int by, int *ref0, int32_t mv0[2],
+                    int32_t mv1[2]) {
+    if (!c->has_col) { c->err = 5; return -1; }
+    corner(c, &bx, &by);
+    int i = col_at(c, bx, by);
+    if (i < 0) return -1;
+    int32_t mvc[2] = {0, 0};
+    int col_id = -1, intra = c->col_intra[i] != 0, from_l1 = 0;
+    if (!intra) {
+        if (c->col_ref0[i] >= 0) {
+            mvc[0] = c->col_mv0[2 * i]; mvc[1] = c->col_mv0[2 * i + 1];
+            col_id = c->col_refpic0[i];
+        } else {
+            mvc[0] = c->col_mv1[2 * i]; mvc[1] = c->col_mv1[2 * i + 1];
+            col_id = c->col_refpic1[i];
+            from_l1 = 1;
+        }
+    }
+    int r = 0;
+    if (!intra && !from_l1)     /* the lowest L0 index of the picture */
+        for (int k = 0; k < c->n_l0; k++)
+            if (c->l0_pic_ids[k] >= 0 && c->l0_pic_ids[k] == col_id) {
+                r = k;
+                break;
+            }
+    long long dsf = r < c->n_l0 ? c->dsf[r] : 256;
+    for (int k = 0; k < 2; k++) {
+        long long v = (dsf * mvc[k] + 128) >> 8;
+        if (v > INT32_MAX || v < INT32_MIN) { c->err = 6; return -1; }
+        mv0[k] = (int32_t)v;
+    }
+    for (int k = 0; k < 2; k++)
+        mv1[k] = (int32_t)((uint32_t)mv0[k] - (uint32_t)mvc[k]);
+    *ref0 = r;
+    return 0;
+}
+
+/* the motion of a direct region: the whole MB (nblk 4) or one 8x8
+ * (nblk 2) at block (gx0, gy0) */
+static int apply_direct(PC *c, int mb, int gx0, int gy0, int nblk) {
+    if (nblk == 4) {
+        int promoted = 0;
+        if (c->has_col && c->col_mb16) {
+            if (mb >= c->col_n16) { c->err = 3; return -1; }
+            promoted = c->col_mb16[mb] != 0;
+        }
+        c->mb16[mb] = (uint8_t)promoted;
+        if (c->compat)
+            c->ibs_mode[mb] = c->mb_type[mb] == T_BSKIP ? 2 : (promoted ? 1 : 0);
+    } else {
+        c->sub_direct[mb] = 1;
+    }
+    int step = c->direct_8x8 ? 2 : 1;
+    if (c->spatial) spatial_mb(c, mb);
+    for (int oy = 0; oy < nblk; oy += step)
+        for (int ox = 0; ox < nblk; ox += step) {
+            int bx = gx0 + ox, by = gy0 + oy;
+            if (c->spatial) {
+                int cz = col_zero(c, bx, by);
+                if (cz < 0) return -1;
+                for (int lx = 0; lx < 2; lx++) {
+                    int use = c->sd_use[lx], ref = c->sd_ref[lx];
+                    int zero = !use || (cz && ref == 0);
+                    set_partition(c, bx, by, step, step, lx, use ? ref : -1,
+                                  zero ? 0 : c->sd_mv[lx][0],
+                                  zero ? 0 : c->sd_mv[lx][1]);
+                }
+            } else {
+                int r0;
+                int32_t m0[2], m1[2];
+                if (temporal(c, bx, by, &r0, m0, m1)) return -1;
+                set_partition(c, bx, by, step, step, 0, r0, m0[0], m0[1]);
+                set_partition(c, bx, by, step, step, 1, 0, m1[0], m1[1]);
+            }
+        }
+    return 0;
+}
+
 /* ---------- MBs ---------- */
-/* the intra MB after its mb_type (raw 0 I4x4, 1..24 I16x16, 25 IPCM) */
+/* the intra MB after its mb_type (raw 0 I_NxN, 1..24 I16x16, 25 IPCM) */
 static int decode_i_mb(PC *c, int mb, int raw) {
     int mbx = mb % c->mb_w, mby = mb / c->mb_w, w4 = c->w4;
     for (int q = 0; q < 4; q++) c->pred_mode[mb * 4 + q] = -1;
@@ -939,17 +1276,33 @@ static int decode_i_mb(PC *c, int mb, int raw) {
 
     int cbp;
     if (raw == 0) {
-        c->mb_type[mb] = T_I4;
-        c->transform8[mb] = 0;
+        int t8 = c->t8_mode ? transform8_flag(c, mb) : 0;
+        c->mb_type[mb] = t8 ? T_I8 : T_I4;
+        c->transform8[mb] = (uint8_t)t8;
         int32_t modes[16] = {0};
-        for (int k = 0; k < 16; k++) {
-            int raster = ZS2R[k];
-            int gx = mbx * 4 + raster % 4, gy = mby * 4 + raster / 4;
+        for (int k = 0; k < (t8 ? 4 : 16); k++) {
+            int bx, by;
+            if (t8) {
+                bx = (k & 1) * 2;
+                by = (k >> 1) * 2;
+            } else {
+                bx = ZS2R[k] % 4;
+                by = ZS2R[k] / 4;
+            }
+            int gx = mbx * 4 + bx, gy = mby * 4 + by;
             int pred = pred_i4_mode(c, gx, gy);
             int rem = intra4x4_pred_mode(c);
             int mode = rem < 0 ? pred : (rem < pred ? rem : rem + 1);
-            c->i4_grid[gy * w4 + gx] = mode;
-            modes[raster] = mode;
+            if (t8) {
+                c->i4_grid[gy * w4 + gx] = c->i4_grid[gy * w4 + gx + 1] = mode;
+                c->i4_grid[(gy + 1) * w4 + gx] = mode;
+                c->i4_grid[(gy + 1) * w4 + gx + 1] = mode;
+                modes[by * 4 + bx] = modes[by * 4 + bx + 1] = mode;
+                modes[(by + 1) * 4 + bx] = modes[(by + 1) * 4 + bx + 1] = mode;
+            } else {
+                c->i4_grid[gy * w4 + gx] = mode;
+                modes[by * 4 + bx] = mode;
+            }
         }
         memcpy(c->i4_modes + mb * 16, modes, sizeof(modes));
         c->chroma_mode[mb] = intra_chroma_pred_mode(c, mb);
@@ -968,39 +1321,51 @@ static int decode_i_mb(PC *c, int mb, int raw) {
     return store_residual(c, mb, cbp, c->mb_type[mb] == T_I16);
 }
 
-/* a partition's list 0 mvd pair, its MV from the MVP, and its mvd */
-static int set_part_with_mvd(PC *c, int mb, int px, int py, int pw, int ph,
-                             int ref) {
-    int32_t d0 = mvd(c, mb, 0, px, py);
+/* a partition's list-lx mvd pair, its MV from the MVP, and its mvd */
+static int set_part_with_mvd(PC *c, int mb, int lx, int px, int py, int pw,
+                             int ph, int ref) {
+    int32_t d0 = mvd(c, mb, lx, 0, px, py);
     if (c->err) return -1;
-    int32_t d1 = mvd(c, mb, 1, px, py);
+    int32_t d1 = mvd(c, mb, lx, 1, px, py);
     if (c->err) return -1;
     int32_t mvp[2];
-    pred_mv(c, px, py, pw, ph, 0, ref, mb, mvp);
+    pred_mv(c, px, py, pw, ph, lx, ref, mb, mvp);
     /* int32 sums wrap, as numpy's do */
-    set_partition(c, px, py, pw, ph, 0, ref,
+    set_partition(c, px, py, pw, ph, lx, ref,
                   (int32_t)((uint32_t)mvp[0] + (uint32_t)d0),
                   (int32_t)((uint32_t)mvp[1] + (uint32_t)d1));
     for (int y = py; y < py + ph; y++)
         for (int x = px; x < px + pw; x++) {
-            c->gmvd[(y * c->w4 + x) * 2] = d0;
-            c->gmvd[(y * c->w4 + x) * 2 + 1] = d1;
+            c->gmvd[GI(c, lx, y, x) * 2] = d0;
+            c->gmvd[GI(c, lx, y, x) * 2 + 1] = d1;
         }
     return 0;
 }
 
 static void clear_block_grids(PC *c, int mb, int direct) {
     int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
-    int w4 = c->w4, h4 = c->h4;
     for (int lx = 0; lx < 2; lx++)
         for (int y = gy; y < gy + 4; y++)
             for (int x = gx; x < gx + 4; x++) {
-                c->gmvd[((lx * h4 + y) * w4 + x) * 2] = 0;
-                c->gmvd[((lx * h4 + y) * w4 + x) * 2 + 1] = 0;
+                c->gmvd[GI(c, lx, y, x) * 2] = 0;
+                c->gmvd[GI(c, lx, y, x) * 2 + 1] = 0;
             }
-    for (int y = gy; y < gy + 4; y++)
-        for (int x = gx; x < gx + 4; x++)
-            c->gdirect[y * w4 + x] = (int8_t)direct;
+    fill_gdirect(c, gx, gy, 4, direct);
+}
+
+/* an inter MB's coded_block_pattern, transform_size_8x8_flag and
+ * residual, after its motion */
+static int inter_residual(PC *c, int mb, int t8_allowed) {
+    int cbp = cbp_ctx(c, mb);
+    c->cbp[mb] = cbp;
+    if ((cbp & 15) && c->t8_mode && t8_allowed)
+        c->transform8[mb] = (uint8_t)transform8_flag(c, mb);
+    if (cbp) return store_residual(c, mb, cbp, 0);
+    c->last_dqp = 0;
+    c->qp[mb] = c->cur_qp;
+    set_nzc_l(c, mb, 0);
+    set_nzc_c(c, mb, 0);
+    return 0;
 }
 
 static int decode_p_mb(PC *c, int mb) {
@@ -1012,12 +1377,13 @@ static int decode_p_mb(PC *c, int mb) {
         mark_intra_grids(c, mb);
         return 0;
     }
+    int t8_allowed = 1;
     for (int q = 0; q < 4; q++) c->pred_mode[mb * 4 + q] = 0;
     if (raw == 0) {
         c->mb_type[mb] = T_P16;
-        int ref = ref_idx(c, mb, gx, gy);
+        int ref = ref_idx(c, mb, 0, gx, gy, 0);
         if (c->err) return -1;
-        if (set_part_with_mvd(c, mb, gx, gy, 4, 4, ref)) return -1;
+        if (set_part_with_mvd(c, mb, 0, gx, gy, 4, 4, ref)) return -1;
     } else if (raw == 1 || raw == 2) {
         /* 16x8 (partitions stacked) or 8x16 (side by side) */
         c->mb_type[mb] = raw == 1 ? T_P168 : T_P816;
@@ -1026,12 +1392,12 @@ static int decode_p_mb(PC *c, int mb) {
         for (int p = 0; p < 2; p++) {
             px[p] = raw == 1 ? gx : gx + 2 * p;
             py[p] = raw == 1 ? gy + 2 * p : gy;
-            refs[p] = ref_idx(c, mb, px[p], py[p]);
+            refs[p] = ref_idx(c, mb, 0, px[p], py[p], 0);
             if (c->err) return -1;
-            note_ref(c, px[p], py[p], pw, ph, refs[p]);
+            note_ref(c, 0, px[p], py[p], pw, ph, refs[p]);
         }
         for (int p = 0; p < 2; p++)
-            if (set_part_with_mvd(c, mb, px[p], py[p], pw, ph, refs[p]))
+            if (set_part_with_mvd(c, mb, 0, px[p], py[p], pw, ph, refs[p]))
                 return -1;
     } else {           /* P_8x8 (raw 3; the tree never gives P_8x8ref0) */
         c->mb_type[mb] = T_P88;
@@ -1039,9 +1405,9 @@ static int decode_p_mb(PC *c, int mb) {
         for (int q = 0; q < 4; q++) subs[q] = sub_mb_type_p(c);
         for (int q = 0; q < 4; q++) {
             int qx = gx + (q % 2) * 2, qy = gy + (q / 2) * 2;
-            refs[q] = ref_idx(c, mb, qx, qy);
+            refs[q] = ref_idx(c, mb, 0, qx, qy, 0);
             if (c->err) return -1;
-            note_ref(c, qx, qy, 2, 2, refs[q]);
+            note_ref(c, 0, qx, qy, 2, 2, refs[q]);
         }
         for (int q = 0; q < 4; q++) {
             int qx = gx + (q % 2) * 2, qy = gy + (q / 2) * 2, st = subs[q];
@@ -1053,21 +1419,131 @@ static int decode_p_mb(PC *c, int mb) {
                 if (st == 1) py += part;
                 else if (st == 2) px += part;
                 else if (st == 3) { px += part % 2; py += part / 2; }
-                if (set_part_with_mvd(c, mb, px, py, pw, ph, refs[q]))
+                if (set_part_with_mvd(c, mb, 0, px, py, pw, ph, refs[q]))
                     return -1;
             }
+            if (st != 0) t8_allowed = 0;
         }
     }
     set_partition(c, gx, gy, 4, 4, 1, -1, 0, 0);
     finish_inter_mb(c, mb);
-    int cbp = cbp_ctx(c, mb);
-    c->cbp[mb] = cbp;
-    if (cbp) return store_residual(c, mb, cbp, 0);
-    c->last_dqp = 0;
-    c->qp[mb] = c->cur_qp;
-    set_nzc_l(c, mb, 0);
-    set_nzc_c(c, mb, 0);
-    return 0;
+    return inter_residual(c, mb, t8_allowed);
+}
+
+/* the partition (px, py) of part `part` of a B sub-MB of shape pw x ph
+ * at (qx, qy) */
+static inline void sub_part_pos(int qx, int qy, int pw, int ph, int part,
+                                int *px, int *py) {
+    *px = qx;
+    *py = qy;
+    if (pw == 2 && ph == 1) *py += part;
+    else if (pw == 1 && ph == 2) *px += part;
+    else if (pw == 1 && ph == 1) { *px += part % 2; *py += part / 2; }
+}
+
+static int decode_b_mb(PC *c, int mb) {
+    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    clear_block_grids(c, mb, 0);
+    int raw = mb_type_b_slice(c, mb);
+    if (raw >= 23) {
+        if (decode_i_mb(c, mb, raw - 23)) return -1;
+        mark_intra_grids(c, mb);
+        return 0;
+    }
+    int t8_allowed = 1;
+    if (raw == 0) {
+        c->mb_type[mb] = T_BDIRECT;
+        if (apply_direct(c, mb, gx, gy, 4)) return -1;
+        fill_gdirect(c, gx, gy, 4, 1);
+    } else if (raw <= 3) {
+        c->mb_type[mb] = T_B16;
+        int mode = raw - 1, use[2] = {mode != 1, mode != 0}, refs[2] = {0, 0};
+        for (int lx = 0; lx < 2; lx++)
+            if (use[lx]) {
+                refs[lx] = ref_idx(c, mb, lx, gx, gy, 1);
+                if (c->err) return -1;
+            }
+        for (int lx = 0; lx < 2; lx++)
+            if (!use[lx]) set_partition(c, gx, gy, 4, 4, lx, -1, 0, 0);
+        for (int lx = 0; lx < 2; lx++)
+            if (use[lx] && set_part_with_mvd(c, mb, lx, gx, gy, 4, 4, refs[lx]))
+                return -1;
+    } else if (raw <= 21) {
+        int t = raw - 4, is16x8 = (t % 2) == 0;
+        const int *modes = B_TWOPART[t / 2];
+        c->mb_type[mb] = is16x8 ? T_B168 : T_B816;
+        int pw = is16x8 ? 4 : 2, ph = is16x8 ? 2 : 4;
+        int px[2] = {gx, is16x8 ? gx : gx + 2};
+        int py[2] = {gy, is16x8 ? gy + 2 : gy};
+        int refs[2][2] = {{-1, -1}, {-1, -1}};
+        for (int lx = 0; lx < 2; lx++)
+            for (int p = 0; p < 2; p++) {
+                if (modes[p] == lx || modes[p] == 2) {
+                    refs[p][lx] = ref_idx(c, mb, lx, px[p], py[p], 1);
+                    if (c->err) return -1;
+                }
+                note_ref(c, lx, px[p], py[p], pw, ph, refs[p][lx]);
+            }
+        for (int p = 0; p < 2; p++)
+            for (int lx = 0; lx < 2; lx++)
+                if (refs[p][lx] < 0)
+                    set_partition(c, px[p], py[p], pw, ph, lx, -1, 0, 0);
+        for (int lx = 0; lx < 2; lx++)
+            for (int p = 0; p < 2; p++)
+                if (refs[p][lx] >= 0 &&
+                    set_part_with_mvd(c, mb, lx, px[p], py[p], pw, ph,
+                                      refs[p][lx]))
+                    return -1;
+    } else {           /* 22: B_8x8 */
+        c->mb_type[mb] = T_B88;
+        int subs[4], refs[4][2];
+        for (int q = 0; q < 4; q++) {
+            subs[q] = sub_mb_type_b(c);
+            if (subs[q] > 3) t8_allowed = 0;
+        }
+        /* direct quadrants resolve their motion before the ref loop, so
+         * that their refs and direct flags feed the later contexts */
+        for (int q = 0; q < 4; q++)
+            if (B_SUB[subs[q]][0] == -1) {
+                int qx = gx + (q % 2) * 2, qy = gy + (q / 2) * 2;
+                if (apply_direct(c, mb, qx, qy, 2)) return -1;
+                fill_gdirect(c, qx, qy, 2, 1);
+            }
+        for (int q = 0; q < 4; q++) refs[q][0] = refs[q][1] = -1;
+        for (int lx = 0; lx < 2; lx++)
+            for (int q = 0; q < 4; q++) {
+                int mode = B_SUB[subs[q]][0];
+                if (mode == -1) continue;
+                int qx = gx + (q % 2) * 2, qy = gy + (q / 2) * 2;
+                if (mode == lx || mode == 2) {
+                    refs[q][lx] = ref_idx(c, mb, lx, qx, qy, 1);
+                    if (c->err) return -1;
+                }
+                note_ref(c, lx, qx, qy, 2, 2, refs[q][lx]);
+            }
+        for (int q = 0; q < 4; q++) {
+            if (B_SUB[subs[q]][0] == -1) continue;
+            int qx = gx + (q % 2) * 2, qy = gy + (q / 2) * 2;
+            for (int lx = 0; lx < 2; lx++)
+                if (refs[q][lx] < 0)
+                    set_partition(c, qx, qy, 2, 2, lx, -1, 0, 0);
+        }
+        for (int lx = 0; lx < 2; lx++)
+            for (int q = 0; q < 4; q++) {
+                const int *s = B_SUB[subs[q]];
+                if (s[0] == -1 || (s[0] != lx && s[0] != 2)) continue;
+                int qx = gx + (q % 2) * 2, qy = gy + (q / 2) * 2;
+                for (int part = 0; part < s[1]; part++) {
+                    int px, py;
+                    sub_part_pos(qx, qy, s[2], s[3], part, &px, &py);
+                    if (set_part_with_mvd(c, mb, lx, px, py, s[2], s[3],
+                                          refs[q][lx]))
+                        return -1;
+                }
+            }
+    }
+    finish_inter_mb(c, mb);
+    return inter_residual(c, mb, t8_allowed);
 }
 
 static void decode_p_skip(PC *c, int mb) {
@@ -1084,11 +1560,24 @@ static void decode_p_skip(PC *c, int mb) {
     finish_inter_mb(c, mb);
 }
 
+static int decode_b_skip(PC *c, int mb) {
+    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    clear_block_grids(c, mb, 1);
+    c->mb_type[mb] = T_BSKIP;
+    if (apply_direct(c, mb, gx, gy, 4)) return -1;
+    c->cbp[mb] = 0;
+    c->qp[mb] = c->cur_qp;
+    c->last_dqp = 0;
+    finish_inter_mb(c, mb);
+    return 0;
+}
+
 /* ---------- entry ---------- */
 /* ptrs / params layouts in native.py (parse_cabac_slice_native).
  * out: [0] one past the last MB, [1] the engine's end bit, [2] error
- * (0 ok, 2 invalid), [3] bins decoded, [4] MBs marked correct, [5] 1 if
- * an MB reached its residual's QP. Returns out[2]. */
+ * (PC.err), [3] bins decoded, [4] MBs marked correct, [5] 1 if an MB
+ * reached its residual's QP, [6] 1 if an MB reached the 8x8 residual.
+ * Returns out[2]. */
 long long parse_cabac_slice(const void **ptrs, const int64_t *params,
                             int64_t *out) {
     PC c;
@@ -1133,6 +1622,22 @@ long long parse_cabac_slice(const void **ptrs, const int64_t *params,
     c.gdirect = (int8_t *)ptrs[i++];
     c.ipcm_buf = (uint8_t *)ptrs[i++];
     c.ipcm_flag = (uint8_t *)ptrs[i++];
+    c.l1_pic_ids = (const int32_t *)ptrs[i++];
+    c.dq8 = (const int64_t *)ptrs[i++];
+    c.zigzag8 = (const int32_t *)ptrs[i++];
+    c.coeffs8 = (int32_t *)ptrs[i++];
+    c.mb16 = (uint8_t *)ptrs[i++];
+    c.sub_direct = (uint8_t *)ptrs[i++];
+    c.ibs_mode = (uint8_t *)ptrs[i++];
+    c.col_mv0 = (const int32_t *)ptrs[i++];
+    c.col_mv1 = (const int32_t *)ptrs[i++];
+    c.col_ref0 = (const int32_t *)ptrs[i++];
+    c.col_ref1 = (const int32_t *)ptrs[i++];
+    c.col_refpic0 = (const int32_t *)ptrs[i++];
+    c.col_refpic1 = (const int32_t *)ptrs[i++];
+    c.col_intra = (const uint8_t *)ptrs[i++];
+    c.col_mb16 = (const uint8_t *)ptrs[i++];
+    c.dsf = (const int32_t *)ptrs[i++];
 
     i = 0;
     c.e.nbits = params[i++];
@@ -1152,8 +1657,22 @@ long long parse_cabac_slice(const void **ptrs, const int64_t *params,
     c.b_off = (int)params[i++];
     c.coff0 = (int)params[i++];
     c.coff1 = (int)params[i++];
+    int is_b = (int)params[i++];
+    c.t8_mode = (int)params[i++];
+    c.num_ref_l1 = (int)params[i++];
+    c.n_l1 = (int)params[i++];
+    c.spatial = (int)params[i++];
+    c.direct_8x8 = (int)params[i++];
+    c.has_col = (int)params[i++];
+    c.col_long_term = (int)params[i++];
+    c.col_w4 = (int)params[i++];
+    c.col_h4 = (int)params[i++];
+    c.col_n16 = (int)params[i++];
+    c.compat = (int)params[i++];
+    if (!c.col_n16) c.col_mb16 = NULL;
     c.w4 = c.mb_w * 4;
     c.h4 = c.mb_h * 4;
+    c.sd_mb = -1;
 
     int init_qp = c.cur_qp < 0 ? 0 : (c.cur_qp > 51 ? 51 : c.cur_qp);
     ctx_init(&c.e, init_mn, is_i, init_idc, init_qp);
@@ -1166,11 +1685,15 @@ long long parse_cabac_slice(const void **ptrs, const int64_t *params,
         int rc;
         if (is_i)
             rc = decode_i_mb(&c, mb, mb_type_i_slice(&c, mb));
-        else if (skip_flag(&c, mb)) {
-            decode_p_skip(&c, mb);
-            rc = 0;
+        else if (skip_flag(&c, mb, is_b)) {
+            if (is_b)
+                rc = decode_b_skip(&c, mb);
+            else {
+                decode_p_skip(&c, mb);
+                rc = 0;
+            }
         } else
-            rc = decode_p_mb(&c, mb);
+            rc = is_b ? decode_b_mb(&c, mb) : decode_p_mb(&c, mb);
         if (rc) break;
         c.mb_correct[mb] = 1;
         done++;
@@ -1183,5 +1706,6 @@ long long parse_cabac_slice(const void **ptrs, const int64_t *params,
     out[3] = c.e.bins;
     out[4] = done;
     out[5] = c.residual_seen;
+    out[6] = c.used8;
     return c.err;
 }

@@ -9,7 +9,7 @@ NEW_CTX_OFFSET_*). The host encoder's writer (encoder/cabac_enc.py)
 shares the contexts and tables; the decoder's per-MB slice parser
 (slice_dec_cabac.py) runs the engine, with the residual bins in host C
 (csrc/cabac_residual.c) over the same engine state, and the host C
-parser of whole I/P slices (csrc/parse_cabac.c) carries its own copy of
+parser of whole slices (csrc/parse_cabac.c) carries its own copy of
 the engine and the context initialisation, from the same tables.
 """
 

@@ -4,15 +4,16 @@ Port of openh264_tpu/decoder/decoder.py, which mirrors the reference's
 decode entry flow (welsDecoderExt.cpp DecodeFrameNoDelay → WelsDecodeBs
 → ConstructAccessUnit, SURVEY.md §3.3): Annex-B in, YUV420 frames out.
 
-Per picture: the slices are parsed on the host: I/P slices without FMO
-or the 8x8 transform whole in host C, CAVLC (csrc/parse_cavlc.c) or
-CABAC (csrc/parse_cabac.c); B slices, FMO and the 8x8 transform by the
-per-MB Python parsers (slice_dec.py; slice_dec_cabac.py, per bin with
-their residual bins in C); B direct motion is derived on the host
-(direct.py); inter MBs are predicted (L0, L1, bi, weighted) and get
-their 4x4 or 8x8 residual on the decoder's device and intra MBs run in
-host C, or in host Python in a picture with I8x8 MBs (recon_batch.py);
-the frame is deblocked by
+Per picture: the slices are parsed on the host: CABAC slices without
+FMO (I, P and B, with the 8x8 transform and B direct motion) whole in
+host C (csrc/parse_cabac.c), CAVLC I/P slices without FMO or the 8x8
+transform whole in host C (csrc/parse_cavlc.c); CAVLC B slices, the
+CAVLC 8x8 transform and FMO by the per-MB Python parsers (slice_dec.py;
+slice_dec_cabac.py, per bin with their residual bins in C), whose B
+direct motion is derived on the host (direct.py); inter MBs are
+predicted (L0, L1, bi, weighted) and get their 4x4 or 8x8 residual on
+the decoder's device and intra MBs run in host C, or in host Python in
+a picture with I8x8 MBs (recon_batch.py); the frame is deblocked by
 the port's Hopper kernel on CUDA, or its plain version on the CPU
 (encoder/deblock_host.py); the planes come to the host once, for
 output and for error concealment, which fills the MBs of broken slices

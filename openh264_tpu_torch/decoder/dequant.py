@@ -12,11 +12,9 @@ Properties: 0..2 intra Y/Cb/Cr, 3..5 inter Y/Cb/Cr (4x4); 0 intra /
 Copied from openh264_tpu/decoder/dequant.py (DequantTables), with
 `eff4` from openh264_tpu/native/__init__.py::_dq_eff, the table the
 host C parsers (csrc/parse_cavlc.c, csrc/parse_cabac.c) dequantise
-with, and the numpy DC
+with, `eff8`, the 8x8 table of csrc/parse_cabac.c, and the numpy DC
 transforms of openh264_tpu/oracle/transform.py that the per-MB parsers
-(slice_dec.py, slice_dec_cabac.py) apply at parse time. The 8x8 tables
-are built but no slice reaches them: slice_dec.check_scope refuses the
-8x8 transform.
+(slice_dec.py, slice_dec_cabac.py) apply at parse time.
 """
 
 from __future__ import annotations
@@ -24,6 +22,14 @@ from __future__ import annotations
 import numpy as np
 
 from ..tables.core import DEQUANT_4x4, DEQUANT_8x8
+
+# the host C parsers' tables without scaling lists (eff4, eff8), shared
+# and read only
+_FLAT4 = np.broadcast_to(DEQUANT_4x4.astype(np.int64) << 4,
+                         (6, 52, 16)).copy()
+_FLAT8 = np.broadcast_to(DEQUANT_8x8.astype(np.int64) * 16,
+                         (2, 52, 64)).copy()
+_FLAT4.flags.writeable = _FLAT8.flags.writeable = False
 
 _H2 = np.array([[1, 1], [1, -1]], dtype=np.int32)
 _H4 = np.array([[1, 1, 1, 1],
@@ -77,9 +83,15 @@ class DequantTables:
         (level*dq + 8) >> 4 equals the flat multiply exactly."""
         if self.use:
             return np.ascontiguousarray(self.dq4, np.int64)
-        flat = DEQUANT_4x4.astype(np.int64) << 4
-        return np.ascontiguousarray(
-            np.broadcast_to(flat, (6, 52, 16)).copy(), np.int64)
+        return _FLAT4
+
+    def eff8(self) -> np.ndarray:
+        """The C parser's [2][52][64] int64 table (intra, inter x QP x
+        position) of luma8x8's products before its shift: the 8x8 list
+        products with scaling lists, else DEQUANT_8x8 * 16."""
+        if self.use:
+            return np.ascontiguousarray(self.dq8[:2], np.int64)
+        return _FLAT8
 
     # ---- 4x4 AC ----
     def luma_ac(self, levels16, qp: int, intra: bool):

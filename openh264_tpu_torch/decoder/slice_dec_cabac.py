@@ -9,19 +9,18 @@ with the 8x8 transform (transform_size_8x8_flag, I8x8, the LUMA_8x8
 residual blocks) and B direct prediction through slice_dec.apply_direct
 (SP/SI slices are refused by slice_dec.check_scope).
 
-decode_slice_data_cabac routes as decode_slice_data_cavlc does: I and P
-slices without FMO or the 8x8 transform go whole to the host C
-(csrc/parse_cabac.c through native.parse_cabac_slice_native), which
-mirrors this module's per-MB parser array for array; B slices, FMO and
-a PPS with transform_8x8_mode go to the per-MB parser here
-(decode_slice_mbs_cabac), the general path and the twin the tests hold
-the C against. There the syntax elements run per bin in Python on
-CabacEngine, and every residual block's bins in host C
-(csrc/cabac_residual.c) over the same engine state and context arrays,
-so the two interleave within a slice. The JAX module falls back to
-Python residual bins when its C does not build; here a failed build
-raises, and the Python bin loop (residual_levels_plain) is only the twin
-the tests hold csrc/cabac_residual.c against.
+decode_slice_data_cabac sends every slice without FMO, I, P or B, with
+or without the 8x8 transform, whole to the host C (csrc/parse_cabac.c
+through native.parse_cabac_slice_native), which mirrors this module's
+per-MB parser array for array, direct prediction included; FMO slices
+go to the per-MB parser here (decode_slice_mbs_cabac), the general path
+and the twin the tests hold the C against. There the syntax elements
+run per bin in Python on CabacEngine, and every residual block's bins
+in host C (csrc/cabac_residual.c) over the same engine state and
+context arrays, so the two interleave within a slice. The JAX module
+falls back to Python residual bins when its C does not build; here a
+failed build raises, and the Python bin loop (residual_levels_plain) is
+only the twin the tests hold csrc/cabac_residual.c against.
 """
 
 from __future__ import annotations
@@ -966,15 +965,12 @@ def decode_slice_mbs_cabac(rbsp: bytes, bitpos: int,
 def decode_slice_data_cabac(rbsp: bytes, bitpos: int,
                             ctx: SliceDecodeContext) -> int:
     """Parse all MBs of a CABAC slice from bit `bitpos` of its RBSP (the
-    end of its header). Returns one past the last MB. I and P slices
-    without FMO or the 8x8 transform go to the host C
-    (native.parse_cabac_slice_native), the others (B, FMO,
-    transform_8x8_mode) to the Python parser, as decode_slice_data_cavlc
-    routes CAVLC slices."""
+    end of its header). Returns one past the last MB. I, P and B slices,
+    with or without the 8x8 transform, go to the host C
+    (native.parse_cabac_slice_native); FMO slices, which no conforming
+    CABAC stream has, to the Python parser."""
     from ..native import parse_cabac_slice_native
-    sh = ctx.sh
-    check_scope(sh)
-    if sh.slice_type == B_SLICE or sh.pps.num_slice_groups > 1 or \
-            sh.pps.transform_8x8_mode:
+    check_scope(ctx.sh)
+    if ctx.sh.pps.num_slice_groups > 1:
         return decode_slice_mbs_cabac(rbsp, bitpos, ctx)[0]
     return parse_cabac_slice_native(rbsp, bitpos, ctx)[0]

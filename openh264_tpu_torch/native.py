@@ -1,9 +1,9 @@
 """Host C of the host encoder and the decoder, bound with ctypes: the
 I-frame intra mode decision and encode (`enc_intra_frame_native`), the
 token bit packer (`bitpack`), the decoder's CAVLC slice parser
-(`parse_cavlc_slice_native`), its CABAC slice parser of I and P slices
-(`parse_cabac_slice_native`), the CABAC residual-block bins of its
-per-MB Python parser (`cabac_residual_lib`) and its intra
+(`parse_cavlc_slice_native`), its CABAC slice parser of I, P and B
+slices (`parse_cabac_slice_native`), the CABAC residual-block bins of
+its per-MB Python parser (`cabac_residual_lib`) and its intra
 reconstruction (`recon_intra_mbs_native`).
 
 Port of the functions of openh264_tpu/native/__init__.py that these
@@ -24,7 +24,8 @@ import functools
 import numpy as np
 
 from . import _build
-from .tables import CHROMA_QP_TABLE, DEQUANT_4x4, QUANT_MF_4x4, ZIGZAG_4x4
+from .tables import (CHROMA_QP_TABLE, DEQUANT_4x4, QUANT_MF_4x4,
+                     ZIGZAG_4x4, ZIGZAG_8x8)
 from .utils import trace
 
 
@@ -240,6 +241,7 @@ def _cabac_tables() -> dict:
         "cqp": np.ascontiguousarray(CHROMA_QP_TABLE, np.int32),
         "zz": np.ascontiguousarray(ZIGZAG_4x4, np.int32),
         "cbp_i16": np.ascontiguousarray(CBP_I16x16, np.int32),
+        "zz8": np.ascontiguousarray(ZIGZAG_8x8, np.int32),
     }
 
 
@@ -248,31 +250,40 @@ _CABAC_ERRORS = {2: (ValueError, "invalid CABAC bitstream (native parse)"),
                  3: (IndexError, "slice QP outside the dequant tables "
                                  "(native CABAC parse)"),
                  4: (OverflowError, "CABAC offset past int64 at a residual "
-                                    "block (native parse)")}
+                                    "block (native parse)"),
+                 5: (AttributeError, "temporal direct without a colocated "
+                                     "picture (native CABAC parse)"),
+                 6: (OverflowError, "temporal direct MV past int32 "
+                                    "(native CABAC parse)")}
 
 
 def parse_cabac_slice_native(rbsp: bytes, bitpos: int, ctx) -> tuple:
-    """Parses one CABAC I or P slice's data (no 8x8 transform, no FMO:
-    decoder/slice_dec_cabac.py routes those to its Python parser) from
-    bit `bitpos` of its RBSP (the end of its header) into ctx.fs, as
-    slice_dec_cabac.decode_slice_mbs_cabac does, array for array.
-    Returns (one past the last MB, the engine's end bit). Raises what
-    the Python parser raises: ValueError on a runaway code or truncated
-    IPCM samples, IndexError on a QP outside the dequant tables,
+    """Parses one CABAC I, P or B slice's data (with or without the 8x8
+    transform; no FMO: decoder/slice_dec_cabac.py routes FMO slices to
+    its Python parser) from bit `bitpos` of its RBSP (the end of its
+    header) into ctx.fs, as slice_dec_cabac.decode_slice_mbs_cabac does,
+    array for array, B direct prediction included (ctx.direct's
+    colocated picture and DistScaleFactors go in as arrays, once per
+    slice). Returns (one past the last MB, the engine's end bit). Raises
+    what the Python parser raises: ValueError on a runaway code or
+    truncated IPCM samples, IndexError on a QP outside the dequant
+    tables or a colocated block outside the colocated picture,
     OverflowError where a broken stream grows the engine's offset past
-    int64 before a residual block, with the MBs parsed so far marked in
-    fs.mb_correct and every array as the Python parser leaves it.
-    Counts cabac_c_mbs and cabac_bins on the open span while the
-    recorder is on."""
+    int64 before a residual block or a temporal-direct MV past int32,
+    AttributeError on temporal direct without a colocated picture, with
+    the MBs parsed so far marked in fs.mb_correct and every array as the
+    Python parser leaves it. Counts cabac_c_mbs and cabac_bins on the
+    open span while the recorder is on."""
     from .decoder.slice_dec_cabac import ensure_cabac_state
-    from .decoder.slicehdr import I_SLICE, P_SLICE
+    from .decoder.slicehdr import B_SLICE, I_SLICE, P_SLICE
     sh, fs = ctx.sh, ctx.fs
-    if sh.slice_type not in (I_SLICE, P_SLICE) or \
-            sh.pps.transform_8x8_mode or sh.pps.num_slice_groups > 1:
-        raise NotImplementedError("parse_cabac_slice_native: I/P slices "
-                                  "without the 8x8 transform or FMO only")
+    if sh.slice_type not in (I_SLICE, P_SLICE, B_SLICE) or \
+            sh.pps.num_slice_groups > 1:
+        raise NotImplementedError("parse_cabac_slice_native: I, P and B "
+                                  "slices without FMO only")
     ensure_cabac_state(fs)
     is_i = sh.slice_type == I_SLICE
+    is_b = sh.slice_type == B_SLICE
     if not is_i and not 0 <= sh.cabac_init_idc <= 2:
         # CabacContexts indexes the m,n table by cabac_init_idc + 1
         raise IndexError(f"cabac_init_idc {sh.cabac_init_idc} out of 0..2")
@@ -280,15 +291,22 @@ def parse_cabac_slice_native(rbsp: bytes, bitpos: int, ctx) -> tuple:
     n_mb = fs.n_mb
     ipcm_buf = np.empty((n_mb, 384), np.uint8)
     ipcm_flag = np.zeros(n_mb, np.uint8)
-    l0_ids = np.array(
-        [p.pic_id if p is not None else -1 for p in ctx.ref_list0] or [-1],
-        np.int32)
+    ids = [np.array([p.pic_id if p is not None else -1 for p in rl] or [-1],
+                    np.int32) for rl in (ctx.ref_list0, ctx.ref_list1)]
+    # the 8x8 coefficients: an MB reaches them only through transform8,
+    # which only a transform_8x8_mode PPS sets
+    coeffs8 = fs.coeffs8
+    if coeffs8 is None:
+        coeffs8 = (np.zeros((n_mb, 4, 64), np.int32)
+                   if sh.pps.transform_8x8_mode or fs.transform8.any()
+                   else _NO_COEFFS8)
+    col_arrays, col_params = _direct_inputs(ctx, is_b)
     i32, i8, u8, b = np.int32, np.int8, np.uint8, np.bool_
     typed = [
         (np.frombuffer(rbsp, u8), u8), (t["init_mn"], i32),
         (t["range_lps"], i32), (t["state_trans"], i32),
         (ctx.dq.eff4(), np.int64), (t["cqp"], i32), (t["zz"], i32),
-        (t["cbp_i16"], i32), (l0_ids, i32), (fs.mb_type, i32),
+        (t["cbp_i16"], i32), (ids[0], i32), (fs.mb_type, i32),
         (fs.slice_id, i32), (fs.transform8, b), (fs.i16_mode, i32),
         (fs.chroma_mode, i32), (fs.i4_modes, i32), (fs.cbp, i32),
         (fs.qp, i32), (fs.mv, i32), (fs.refidx, i8), (fs.ref_pic, i32),
@@ -297,7 +315,10 @@ def parse_cabac_slice_native(rbsp: bytes, bitpos: int, ctx) -> tuple:
         (fs.alpha_offset, i32), (fs.beta_offset, i32), (fs.mb_correct, b),
         (fs.i4_grid, i32), (fs.gmv, i32), (fs.gref, i32),
         (fs.gwritten, b), (fs.grefw, b), (fs.cbf_dc, i32), (fs.gmvd, i32),
-        (fs.gdirect, i8), (ipcm_buf, u8), (ipcm_flag, u8)]
+        (fs.gdirect, i8), (ipcm_buf, u8), (ipcm_flag, u8), (ids[1], i32),
+        (ctx.dq.eff8(), np.int64), (t["zz8"], i32), (coeffs8, i32),
+        (fs.mb16, b), (fs.sub_direct, b), (fs.ibs_mode, u8),
+        *col_arrays]
     for a, dt in typed:
         if a.dtype != dt or not a.flags["C_CONTIGUOUS"]:
             raise ValueError("parse_cabac_slice_native: a symbol array of "
@@ -310,18 +331,23 @@ def parse_cabac_slice_native(rbsp: bytes, bitpos: int, ctx) -> tuple:
         sh.num_ref_idx_l0_active, len(ctx.ref_list0),
         int(ctx.constrained_intra), sh.disable_deblocking_filter_idc,
         sh.slice_alpha_c0_offset, sh.slice_beta_offset,
-        sh.pps.chroma_qp_index_offset, sh.pps.second_chroma_qp_index_offset],
-        np.int64)
-    out = np.zeros(6, np.int64)
+        sh.pps.chroma_qp_index_offset, sh.pps.second_chroma_qp_index_offset,
+        int(is_b), int(bool(sh.pps.transform_8x8_mode)),
+        sh.num_ref_idx_l1_active if is_b else 0, len(ctx.ref_list1),
+        *col_params, int(bool(fs.openh264_compat))], np.int64)
+    out = np.zeros(7, np.int64)
     _cabac_parse_lib().parse_cabac_slice(ptrs.ctypes.data, params.ctypes.data,
                                          out.ctypes.data)
-    end_mb, end_pos, err, bins, n_done, residual = (int(v) for v in out)
+    end_mb, end_pos, err, bins, n_done, residual, used8 = (int(v) for v in out)
     # the Python parser sets the deblock's chroma offsets at the first MB
-    # that reaches its residual, and keeps each IPCM MB's samples as it
-    # parses it, also in a slice that fails later
+    # that reaches its residual, allocates the 8x8 coefficients at the
+    # first MB that reaches an 8x8 residual, and keeps each IPCM MB's
+    # samples as it parses it, also in a slice that fails later
     if residual:
         fs.chroma_qp_offsets = (sh.pps.chroma_qp_index_offset,
                                 sh.pps.second_chroma_qp_index_offset)
+    if used8 and fs.coeffs8 is None:
+        fs.coeffs8 = coeffs8
     for idx in np.nonzero(ipcm_flag)[0]:
         raw = ipcm_buf[idx]
         fs.ipcm[int(idx)] = (raw[:256].reshape(16, 16).copy(),
@@ -333,6 +359,44 @@ def parse_cabac_slice_native(rbsp: bytes, bitpos: int, ctx) -> tuple:
         exc, msg = _CABAC_ERRORS[err]
         raise exc(msg)
     return end_mb, end_pos
+
+
+_NO_COEFFS8 = np.zeros((1, 4, 64), np.int32)
+# the colocated grids of a slice without a colocated picture
+_NO_COL = ([(np.zeros(2, np.int32), np.int32)] * 6 +
+           [(np.zeros(1, np.bool_), np.bool_)] * 2 +
+           [(np.zeros(1, np.int32), np.int32)])
+
+
+def _direct_inputs(ctx, is_b: bool) -> tuple:
+    """A slice's direct prediction for parse_cabac_slice as (arrays,
+    params): the motion grids of its colocated picture
+    (direct.DirectContext.col, list 1's first picture, as
+    H264Decoder._attach_col_motion saved them) and the DistScaleFactor
+    of each list 0 index, placeholders where it has none; params:
+    spatial, direct_8x8_inference, a colocated picture, long term, its
+    grids' width and height in 4x4 blocks, its col_mb16's length (0:
+    none)."""
+    d = ctx.direct if is_b else None
+    col = d.col if d is not None else None
+    flags = [int(bool(d and d.spatial)), int(bool(d and d.direct_8x8))]
+    if col is None:
+        return _NO_COL, flags + [0, 0, 0, 0, 0]
+    i32 = np.int32
+    grids = [np.ascontiguousarray(g, dt) for g, dt in (
+        (col.col_mv0, i32), (col.col_mv1, i32), (col.col_ref0, i32),
+        (col.col_ref1, i32), (col.col_refpic0, i32), (col.col_refpic1, i32),
+        (col.col_intra, np.bool_))]
+    h4, w4 = grids[-1].shape
+    if any(g.shape[:2] != (h4, w4) for g in grids):
+        raise ValueError("_direct_inputs: colocated grids of unequal shapes")
+    mb16 = getattr(col, "col_mb16", None)
+    n16 = 0 if mb16 is None else len(mb16)
+    mb16 = (_NO_COL[6][0] if mb16 is None
+            else np.ascontiguousarray(mb16, np.bool_))
+    dsf = np.ascontiguousarray(d.dsf or [0], i32)
+    arrays = [(g, g.dtype) for g in grids] + [(mb16, np.bool_), (dsf, i32)]
+    return arrays, flags + [1, int(bool(col.is_long_term)), w4, h4, n16]
 
 
 def recon_intra_mbs_native(y, u, v, fs, intra_list, constrained: bool):

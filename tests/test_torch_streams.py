@@ -254,10 +254,11 @@ def _b_slice(sps, pps, frame_num, sp=False):
 # ---------------------------------------------------------------------------
 # B pictures and the 8x8 transform, written here
 # ---------------------------------------------------------------------------
-def write_sps(s, log2_poc_lsb=8, num_ref_frames=3):
+def write_sps(s, log2_poc_lsb=8, num_ref_frames=3, direct_8x8=True):
     """A High-profile (100) SPS RBSP with the fields of the parsed SPS `s`
-    (its VUI dropped), POC type 0 and `num_ref_frames`: under it, decode
-    order may differ from output order."""
+    (its VUI dropped), POC type 0, `num_ref_frames` and
+    direct_8x8_inference `direct_8x8`: under it, decode order may differ
+    from output order."""
     assert s.frame_mbs_only
     w = BitWriter()
     w.u(8, 100)                          # profile_idc: High
@@ -277,7 +278,7 @@ def write_sps(s, log2_poc_lsb=8, num_ref_frames=3):
     w.ue(s.mb_width - 1)
     w.ue(s.mb_height - 1)
     w.flag(True)                         # frame_mbs_only
-    w.flag(True)                         # direct_8x8_inference
+    w.flag(direct_8x8)                   # direct_8x8_inference
     crop = (s.crop_left, s.crop_right, s.crop_top, s.crop_bottom)
     w.flag(any(crop))
     for c in crop if any(crop) else ():
@@ -694,14 +695,17 @@ class BinChooser(CabacEngine):
         self.data, self.nbits, self.pos = b"", 0, 0
         self.range, self.offset = 510, 0
 
-    def decision(self, ctx, idx):
+    def choose(self, idx):
+        """The bin of a decision at context `idx`."""
         if idx in self._FIXED:
-            bit = self._FIXED[idx]
-        elif idx in self._PAIRS:
-            bit = 0 if self._pair else 1
+            return self._FIXED[idx]
+        if idx in self._PAIRS:
             self._pair = not self._pair
-        else:
-            bit = int(self.rng.random() < self._P_ONE.get(idx, 0.5))
+            return 1 if self._pair else 0
+        return int(self.rng.random() < self._P_ONE.get(idx, 0.5))
+
+    def decision(self, ctx, idx):
+        bit = self.choose(idx)
         state = ctx.state[idx]
         if bit != ctx.mps[idx]:
             if state == 0:
@@ -712,8 +716,12 @@ class BinChooser(CabacEngine):
         self.bins.append((0, idx, bit))
         return bit
 
+    def choose_bypass(self):
+        """The bin of a bypass decision."""
+        return int(self.rng.random() < 0.5)
+
     def bypass(self):
-        bit = int(self.rng.random() < 0.5)
+        bit = self.choose_bypass()
         self.bins.append((1, 0, bit))
         return bit
 
@@ -739,15 +747,18 @@ class BinChooser(CabacEngine):
         return enc
 
 
-def steer_picture(dec, headers, seed):
+def steer_picture(dec, headers, seed, chooser=None):
     """The CABAC slice NALs of one picture of seeded random bins (see
     BinChooser). dec: the port's H264Decoder on the CPU that has decoded
     the stream so far; headers: per slice (nal_ref_idc, nal_unit_type,
     BitWriter holding the slice header, the MB one past the slice's
-    last). The parser walks each slice under BinChooser with its residual
-    bins in Python (residual_levels_plain), and `dec` decodes the picture
-    those bins make, so that it can steer the next one."""
+    last). The Python parser (decode_slice_mbs_cabac, in the host C's
+    place) walks each slice under BinChooser (or the subclass `chooser`)
+    with its residual bins in Python (residual_levels_plain), and `dec`
+    decodes the picture those bins make, so that it can steer the next
+    one."""
     import openh264_tpu_torch.decoder.slice_dec_cabac as sdc
+    import openh264_tpu_torch.native as native
     rng = np.random.default_rng(seed)
     ends = [end for *_x, end in headers]
     choosers, pending = [], []
@@ -759,18 +770,21 @@ def steer_picture(dec, headers, seed):
                                                 dec.pps_map), br))
 
     def engine(_rbsp, _bitpos):
-        choosers.append(BinChooser(rng, ends[len(choosers)]))
+        choosers.append((chooser or BinChooser)(rng, ends[len(choosers)]))
         return choosers[-1]
 
     def plain_levels(self, prop):
         return sdc.residual_levels_plain(self.eng, self.bctx, prop)
-    saved = sdc.CabacEngine, sdc.CabacSliceDecoder.residual_levels
+    saved = (sdc.CabacEngine, sdc.CabacSliceDecoder.residual_levels,
+             native.parse_cabac_slice_native)
     sdc.CabacEngine = engine
     sdc.CabacSliceDecoder.residual_levels = plain_levels
+    native.parse_cabac_slice_native = sdc.decode_slice_mbs_cabac
     try:
         dec._decode_picture(pending)
     finally:
-        sdc.CabacEngine, sdc.CabacSliceDecoder.residual_levels = saved
+        (sdc.CabacEngine, sdc.CabacSliceDecoder.residual_levels,
+         native.parse_cabac_slice_native) = saved
     out = []
     for (ref_idc, typ, w, _end), (_n, sh, _br), ch in zip(headers, pending,
                                                           choosers):
@@ -780,18 +794,19 @@ def steer_picture(dec, headers, seed):
     return out
 
 
-def cabac_prefix(enc_bs, idc, scaling, seed):
+def cabac_prefix(enc_bs, idc, scaling, seed, direct_8x8=True):
     """The parameter sets and pictures of a CABAC stream from the port's
     encoder (`enc_bs`) under a High-profile SPS of POC type 0 (POCs 0, 8,
     16, ...), the encoder's PPS 0, and a second PPS (pps_id 1: CABAC,
     transform_8x8_mode, weighted_bipred_idc `idc`, two refs per list,
-    with `scaling` sent 4x4 and 8x8 scaling lists). Returns (the bytes,
-    the SPS, PPS 1, the number of pictures)."""
+    with `scaling` sent 4x4 and 8x8 scaling lists), the SPS's
+    direct_8x8_inference `direct_8x8`. Returns (the bytes, the SPS, PPS 1,
+    the number of pictures)."""
     nals, hdrs = _nals_and_headers(enc_bs)
     sps0 = parse_sps(next(n for n in nals if n.nal_unit_type == NAL_SPS).rbsp)
     pps0 = parse_pps(next(n for n in nals if n.nal_unit_type == NAL_PPS).rbsp,
                      {sps0.sps_id: sps0})
-    sps_rbsp = write_sps(sps0)
+    sps_rbsp = write_sps(sps0, direct_8x8=direct_8x8)
     sps = parse_sps(sps_rbsp)
     changes = dict(pps_id=1, transform8=True, weighted_bipred_idc=idc,
                    entropy_coding_mode=True, num_ref_idx_l0_active=2,
@@ -819,7 +834,8 @@ STEERED = (("P", 2, 8, None), ("I", 2, 8, None), ("B", 0, -4, True),
 
 
 def steered_cabac_stream(enc_bs, idc=2, scaling=False, seed=0,
-                         rows_per_slice=None, pictures=STEERED):
+                         rows_per_slice=None, pictures=STEERED,
+                         direct_8x8=True, chooser=None):
     """A CABAC stream of B pictures and the 8x8 transform: cabac_prefix
     of the port encoder's stream `enc_bs`, then `pictures` under PPS 1,
     each of seeded random bins (steer_picture) in slices of
@@ -828,10 +844,13 @@ def steered_cabac_stream(enc_bs, idc=2, scaling=False, seed=0,
     references in output order, the first with spatial direct and an L1
     modification, the second with temporal direct. Each picture's bins
     are steered by the port's own parser; the tests hold the port's
-    decode of the result against the JAX decoder's."""
+    decode of the result against the JAX decoder's. direct_8x8: the
+    SPS's direct_8x8_inference; chooser: a BinChooser subclass that
+    steers every picture."""
     from openh264_tpu_torch.decoder import H264Decoder
     assert idc != 1, "the steered B slices carry no pred_weight_table"
-    prefix, sps, pps1, n_pics = cabac_prefix(enc_bs, idc, scaling, seed)
+    prefix, sps, pps1, n_pics = cabac_prefix(enc_bs, idc, scaling, seed,
+                                             direct_8x8)
     dec = H264Decoder(device="cpu")
     dec.decode_annexb(prefix)
     n_mb = sps.mb_width * sps.mb_height
@@ -852,7 +871,7 @@ def steered_cabac_stream(enc_bs, idc=2, scaling=False, seed=0,
                 first_mb=first)
             headers.append((ref_idc, NAL_SLICE, w,
                             min(first + rows * sps.mb_width, n_mb)))
-        out += steer_picture(dec, headers, seed * 100 + i)
+        out += steer_picture(dec, headers, seed * 100 + i, chooser)
         if ref_idc:
             frame_num += 1
             last_ref_poc = poc

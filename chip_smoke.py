@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the deblock kernel from csrc/deblock.cu with nvcc, and the
-     host C of the host encoder and the decoder from csrc/host_native.c,
-     csrc/parse_cavlc.c and csrc/cabac_residual.c with cc, all at once;
+     host C of the host encoder and the decoder (every library of
+     _build.SIGNATURES: csrc/host_native.c, parse_cavlc.c, parse_cabac.c
+     and cabac_residual.c) with cc, all at once;
   3. each kernel against its plain PyTorch version on the card, exact
      equality, on many grids and in 50 repeats, and both timed with
      CUDA events; the deblock kernel also with the decoder's inputs
@@ -1640,7 +1641,7 @@ def main():
           f"python {sys.version.split()[0]}")
 
     # nvcc and cc at once, one thread each
-    host_c = ("host_native", "parse_cavlc", "cabac_residual")
+    host_c = tuple(_build.SIGNATURES)
     with ThreadPoolExecutor(1 + len(host_c)) as ex:
         builds = list(ex.map(_build.build, ("deblock",) + host_c))
     print(f"build deblock: {builds[0][0]:.2f} s\n{builds[0][1].strip()}")

@@ -5,8 +5,12 @@ shared library with a plain C interface and loaded with ctypes. Each
 `csrc/<name>.c` is host code, compiled by the host C compiler (`cc`)
 and never by nvcc. Builds happen at first use, into
 `build/openh264_tpu_torch/` beside the package (git-ignored); the file
-name carries a hash of the source and flags, so an edited source
-rebuilds and an unchanged one loads at once. A failed build raises.
+name carries a hash of the source, the csrc headers it includes and
+the flags, so an edited source or header rebuilds and an unchanged one
+loads at once. A failed build raises. SIGNATURES declares the ctypes
+signature of every symbol of the host-C libraries, and bind(name) hands
+out a library with them declared: a new host-C library is one entry
+there.
 Builds and loads are safe from several threads (simulcast layers and
 GOP sessions build at first use): a lock per library serialises its
 build and load in a process, so that different libraries may build at
@@ -20,6 +24,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,6 +37,23 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
+_P = ctypes.c_void_p
+# host-C library -> its symbols -> (restype, argtypes); the binding
+# modules beside the callers (encoder/cbind.py, decoder/cbind.py) pack
+# the arguments
+SIGNATURES = {
+    "host_native": {
+        "bitpack": (ctypes.c_size_t,
+                    [_P, _P, ctypes.c_size_t, _P, ctypes.c_size_t]),
+        "enc_intra_frame": (None, [_P] * 2),
+        "recon_intra_mbs": (None, [_P] * 2),
+    },
+    "parse_cavlc": {"parse_cavlc_slice": (ctypes.c_int, [_P] * 3)},
+    "parse_cabac": {"parse_cabac_slice": (ctypes.c_longlong, [_P] * 3)},
+    "cabac_residual": {
+        "cabac_residual": (ctypes.c_int, [_P, ctypes.c_longlong] + [_P] * 7),
+    },
+}
 _LOCKS: dict[str, threading.RLock] = {}
 _LOCKS_LOCK = threading.Lock()
 
@@ -69,7 +91,10 @@ def _source(name: str) -> tuple[Path, list[str]]:
 
 def _target(name: str) -> Path:
     src, flags = _source(name)
-    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+    text = src.read_bytes()
+    headers = b"".join((CSRC / h.decode()).read_bytes() for h in
+                       re.findall(rb'^#include "([^"]+)"', text, re.M))
+    tag = hashlib.sha256(text + headers + " ".join(flags).encode()
                          ).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
@@ -101,12 +126,25 @@ def build(name: str) -> tuple[float, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library of csrc/<name>.cu or .c, built first if
-    needed; loaded once per process."""
+    needed; loaded once per process, with the signatures SIGNATURES
+    gives its symbols declared."""
     with _lock(name):
         return _load(name)
+
+
+def bind(name: str) -> ctypes.CDLL:
+    """The host-C library csrc/<name>.c of SIGNATURES, its symbols'
+    signatures declared (load)."""
+    if name not in SIGNATURES:
+        raise KeyError(f"csrc/{name}.c has no entry in _build.SIGNATURES")
+    return load(name)
 
 
 @functools.lru_cache(maxsize=None)
 def _load(name: str) -> ctypes.CDLL:
     build(name)
-    return ctypes.CDLL(str(_target(name)))
+    lib = ctypes.CDLL(str(_target(name)))
+    for sym, (restype, argtypes) in SIGNATURES.get(name, {}).items():
+        fn = getattr(lib, sym)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib

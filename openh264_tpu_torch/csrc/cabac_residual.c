@@ -8,7 +8,7 @@
  * (parse_mb_syn_cabac.cpp).
  *
  * Copied from openh264_tpu/native/cabac_residual.c; built on its own by
- * _build.py into libcabac_residual and bound in native.py. */
+ * _build.py into libcabac_residual and bound in decoder/cbind.py. */
 
 #include <stdint.h>
 

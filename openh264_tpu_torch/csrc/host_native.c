@@ -11,8 +11,8 @@
  *  - recon_intra_mbs and idct4_add: openh264_tpu/native/recon_intra.c
  *    (its note is at recon_intra_mbs below).
  * Built with the host compiler by openh264_tpu_torch/_build.py and bound
- * with ctypes by openh264_tpu_torch/native.py. Nothing here runs on the
- * card.
+ * with ctypes by openh264_tpu_torch/encoder/cbind.py (the encoder's) and
+ * decoder/cbind.py (recon_intra_mbs). Nothing here runs on the card.
  *
  * The original enc_intra.c note follows.
  *

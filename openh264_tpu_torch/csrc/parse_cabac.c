@@ -2,8 +2,10 @@
  * B slices, with the 8x8 transform and B direct prediction.
  *
  * Built with the host compiler by openh264_tpu_torch/_build.py and bound
- * with ctypes by openh264_tpu_torch/native.py (parse_cabac_slice_native).
- * Nothing here runs on the card.
+ * with ctypes by openh264_tpu_torch/decoder/cbind.py
+ * (parse_cabac_slice_native). Nothing here runs on the card. Its MB
+ * prediction core (grids, neighbours, MV prediction) is csrc/mb_pred.h,
+ * shared with csrc/parse_cavlc.c.
  *
  * It parses one whole CABAC slice, from the end of its header to
  * end_of_slice_flag, into the FrameSymbols arrays, and mirrors the
@@ -19,7 +21,7 @@
  *
  * Scope: I, P and B slices, with or without transform_8x8_mode, spatial
  * and temporal direct, in raster order. FMO slices go to the Python
- * parser (decoder/slice_dec_cabac.py routes them). The B and 8x8 syntax
+ * parser (decoder/slice_dec.py c_parses routes them). The B and 8x8 syntax
  * runs only where the slice type and the PPS ask for it.
  */
 
@@ -27,10 +29,10 @@
 #include <stddef.h>
 #include <string.h>
 
-/* the engine's bins and the neighbour lookups are inlined wherever they
- * are called, whatever the compiler's size heuristics make of a unit
- * this large */
-#define ALWAYS_INLINE inline __attribute__((always_inline))
+/* the grids, neighbours, MV prediction and per-MB grid updates shared
+ * with parse_cavlc.c, and ALWAYS_INLINE, with which the engine's bins
+ * are inlined too */
+#include "mb_pred.h"
 
 /* ctxIdx offsets (decoder/cabac.py, the spec's ctxIdx space) */
 enum {
@@ -67,9 +69,6 @@ static const int LAST8[64] = {
 enum { T_I4 = 0, T_I16 = 1, T_IPCM = 2, T_I8 = 3, T_P16 = 4, T_P168 = 5,
        T_P816 = 6, T_P88 = 7, T_PSKIP = 8, T_B16 = 9, T_B168 = 10,
        T_B816 = 11, T_B88 = 12, T_BSKIP = 13, T_BDIRECT = 14 };
-
-static const int ZS2R[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13,
-                             10, 11, 14, 15};
 
 /* two-partition B mb_type 4..21: the modes (0 L0, 1 L1, 2 BI) of its
  * partitions (slice_dec._B_TWOPART_MODES) */
@@ -257,6 +256,7 @@ static int r_exp_bypass(REng *r, int k) {
 /* ---------- parser context ---------- */
 typedef struct {
     Eng e;
+    MbGrid g;                     /* the grids of csrc/mb_pred.h */
     /* tables */
     const int64_t *dq4;           /* [6][52][16] effective (DequantTables.eff4) */
     const int64_t *dq8;           /* [2][52][64] effective (DequantTables.eff8) */
@@ -264,29 +264,16 @@ typedef struct {
     const int32_t *zigzag;        /* [16] */
     const int32_t *zigzag8;       /* [64] */
     const int32_t *cbp_i16;       /* [6] */
-    const int32_t *l0_pic_ids;    /* [n_l0], -1 for a missing picture */
-    const int32_t *l1_pic_ids;    /* [n_l1], -1 for a missing picture */
     /* FrameSymbols */
-    int32_t *mb_type, *slice_id;
     uint8_t *transform8;
     int32_t *i16_mode, *chroma_mode, *i4_modes, *cbp, *qp;
-    int32_t *mv;                  /* [n][2][16][2] */
-    int8_t *refidx;               /* [n][2][4] */
-    int32_t *ref_pic;             /* [n][2][4] */
-    int8_t *pred_mode;            /* [n][4] */
     int32_t *coeffs_l;            /* [n][16][16] */
     int32_t *coeffs_c;            /* [n][2][4][16] */
     int32_t *coeffs8;             /* [n][4][64] */
     int32_t *nzc_l;               /* [H4][W4] */
     int32_t *nzc_c;               /* [2][H2][W2] */
-    int32_t *disable_deblock, *alpha_off, *beta_off;
     uint8_t *mb_correct;
     uint8_t *mb16, *sub_direct, *ibs_mode;   /* [n] */
-    int32_t *i4_grid;             /* [H4][W4] */
-    int32_t *gmv;                 /* [2][H4][W4][2] */
-    int32_t *gref;                /* [2][H4][W4] */
-    uint8_t *gwritten;            /* [H4][W4] */
-    uint8_t *grefw;               /* [2][H4][W4] */
     int32_t *cbf_dc;              /* [n] bits 0..2: I16 DC, Cb DC, Cr DC */
     int32_t *gmvd;                /* [2][H4][W4][2] */
     int8_t *gdirect;              /* [H4][W4] */
@@ -300,9 +287,7 @@ typedef struct {
     const uint8_t *col_mb16;      /* [col_n16], NULL when it has none */
     const int32_t *dsf;           /* [n_l0] DistScaleFactor per L0 index */
     /* params */
-    int first_mb, mb_w, mb_h, w4, h4, slice_idx;
-    int num_ref_l0, n_l0, num_ref_l1, n_l1;
-    int constrained, ddb_idc, a_off, b_off, coff0, coff1;
+    int first_mb, num_ref_l0, num_ref_l1, coff0, coff1;
     int t8_mode, spatial, direct_8x8, compat;
     int has_col, col_long_term, col_w4, col_h4, col_n16;
     int cur_qp, last_dqp;
@@ -320,206 +305,43 @@ typedef struct {
     int32_t sd_mv[2][2];
 } PC;
 
-#define GI(c, lx, y, x) (((lx) * (c)->h4 + (y)) * (c)->w4 + (x))
-
 /* ---------- neighbours ---------- */
-static inline int mb_avail(PC *c, int mbx, int mby) {
-    if (mbx < 0 || mby < 0 || mbx >= c->mb_w || mby >= c->mb_h) return 0;
-    return c->slice_id[mby * c->mb_w + mbx] == c->slice_idx;
-}
-
 static inline void left_top(PC *c, int mb, int *left, int *top) {
-    int mbx = mb % c->mb_w, mby = mb / c->mb_w;
-    *left = mb_avail(c, mbx - 1, mby) ? mb - 1 : -1;
-    *top = mb_avail(c, mbx, mby - 1) ? mb - c->mb_w : -1;
+    int mbx = mb % c->g.mb_w, mby = mb / c->g.mb_w;
+    *left = mb_avail(&c->g, mbx - 1, mby) ? mb - 1 : -1;
+    *top = mb_avail(&c->g, mbx, mby - 1) ? mb - c->g.mb_w : -1;
 }
 
-static inline int is_intra_type(int t) { return t >= 0 && t <= 3; }
-
-static inline int i4_mode_at(PC *c, int bx, int by) {
-    if (bx < 0 || by < 0) return -1;
-    int mbx = bx / 4, mby = by / 4;
-    if (!mb_avail(c, mbx, mby)) return -1;
-    if (!is_intra_type(c->mb_type[mby * c->mb_w + mbx]))
-        return c->constrained ? -1 : 2;
-    int m = c->i4_grid[by * c->w4 + bx];
-    return m < 0 ? 2 : m;
-}
-
-static inline int pred_i4_mode(PC *c, int gx, int gy) {
-    int ma = i4_mode_at(c, gx - 1, gy);
-    int mb = i4_mode_at(c, gx, gy - 1);
-    if (ma < 0 || mb < 0) return 2;
-    return ma < mb ? ma : mb;
-}
-
-/* ---------- MV prediction over the global grids (mvpred.py) ---------- */
-static ALWAYS_INLINE void blk_info(PC *c, int bx, int by, int lx, int cur_mb,
-                            int *avail, int *ref, int32_t mvout[2]) {
-    int w4 = c->w4, h4 = c->h4;
-    mvout[0] = mvout[1] = 0;
-    *avail = 0;
-    *ref = -1;
-    if (bx < 0 || by < 0 || bx >= w4 || by >= h4) return;
-    int mb = (by / 4) * c->mb_w + (bx / 4);
-    if (mb == cur_mb) {
-        if (!c->gwritten[by * w4 + bx]) return;
-    } else if (c->slice_id[mb] != c->slice_idx) {
-        return;
-    }
-    *avail = 1;
-    *ref = c->gref[GI(c, lx, by, bx)];
-    mvout[0] = c->gmv[GI(c, lx, by, bx) * 2];
-    mvout[1] = c->gmv[GI(c, lx, by, bx) * 2 + 1];
-}
-
-static inline int32_t med3(int32_t a, int32_t b, int32_t cc) {
-    int32_t mx = a > b ? a : b, mn = a < b ? a : b;
-    if (cc > mx) return mx;
-    if (cc < mn) return mn;
-    return cc;
-}
-
-static void pred_mv(PC *c, int gx, int gy, int pw, int ph, int lx,
-                    int ref_idx, int cur_mb, int32_t out[2]) {
-    int aa, ab, ac, ra, rb, rc;
-    int32_t mva[2], mvb[2], mvc[2];
-    blk_info(c, gx - 1, gy, lx, cur_mb, &aa, &ra, mva);
-    blk_info(c, gx, gy - 1, lx, cur_mb, &ab, &rb, mvb);
-    blk_info(c, gx + pw, gy - 1, lx, cur_mb, &ac, &rc, mvc);
-    if (!ac) blk_info(c, gx - 1, gy - 1, lx, cur_mb, &ac, &rc, mvc);
-    if (pw == 4 && ph == 2) {
-        if ((gy & 3) == 0) {
-            if (ab && rb == ref_idx) { out[0] = mvb[0]; out[1] = mvb[1]; return; }
-        } else {
-            if (aa && ra == ref_idx) { out[0] = mva[0]; out[1] = mva[1]; return; }
-        }
-    } else if (pw == 2 && ph == 4) {
-        if ((gx & 3) == 0) {
-            if (aa && ra == ref_idx) { out[0] = mva[0]; out[1] = mva[1]; return; }
-        } else {
-            if (ac && rc == ref_idx) { out[0] = mvc[0]; out[1] = mvc[1]; return; }
-        }
-    }
-    int ma = aa && ra == ref_idx, mb = ab && rb == ref_idx,
-        mc = ac && rc == ref_idx;
-    if (ma + mb + mc == 1) {
-        if (ma) { out[0] = mva[0]; out[1] = mva[1]; return; }
-        if (mb) { out[0] = mvb[0]; out[1] = mvb[1]; return; }
-        out[0] = mvc[0]; out[1] = mvc[1]; return;
-    }
-    if (!ab && !ac && aa) { out[0] = mva[0]; out[1] = mva[1]; return; }
-    out[0] = med3(aa ? mva[0] : 0, ab ? mvb[0] : 0, ac ? mvc[0] : 0);
-    out[1] = med3(aa ? mva[1] : 0, ab ? mvb[1] : 0, ac ? mvc[1] : 0);
-}
-
-static void pred_skip_mv(PC *c, int gx, int gy, int cur_mb, int32_t out[2]) {
-    int aa, ab, ra, rb;
-    int32_t mva[2], mvb[2];
-    blk_info(c, gx - 1, gy, 0, cur_mb, &aa, &ra, mva);
-    blk_info(c, gx, gy - 1, 0, cur_mb, &ab, &rb, mvb);
-    out[0] = out[1] = 0;
-    if (!aa || !ab) return;
-    if ((ra == 0 && mva[0] == 0 && mva[1] == 0) ||
-        (rb == 0 && mvb[0] == 0 && mvb[1] == 0)) return;
-    pred_mv(c, gx, gy, 4, 4, 0, 0, cur_mb, out);
-}
-
-/* inlined at each call, so that the P path's calls take their list as
- * a constant */
-static ALWAYS_INLINE void
-set_partition(PC *c, int gx, int gy, int pw, int ph, int lx, int ref_idx,
-              int32_t mv0, int32_t mv1) {
-    int w4 = c->w4;
-    for (int y = gy; y < gy + ph; y++)
-        for (int x = gx; x < gx + pw; x++) {
-            c->gmv[GI(c, lx, y, x) * 2] = mv0;
-            c->gmv[GI(c, lx, y, x) * 2 + 1] = mv1;
-            c->gref[GI(c, lx, y, x)] = ref_idx;
-            c->gwritten[y * w4 + x] = 1;
-            c->grefw[GI(c, lx, y, x)] = 1;
-        }
-}
-
-/* ---------- per-MB grid helpers (slice_dec.py) ---------- */
-static void mb_common_init(PC *c, int mb) {
-    int mbx = mb % c->mb_w, mby = mb / c->mb_w;
-    c->slice_id[mb] = c->slice_idx;
-    c->disable_deblock[mb] = c->ddb_idc;
-    c->alpha_off[mb] = c->a_off;
-    c->beta_off[mb] = c->b_off;
-    for (int y = mby * 4; y < mby * 4 + 4; y++)
-        for (int x = mbx * 4; x < mbx * 4 + 4; x++)
-            c->gwritten[y * c->w4 + x] = 0;
-}
-
-static void finish_inter_mb(PC *c, int mb) {
-    int gy = (mb / c->mb_w) * 4, gx = (mb % c->mb_w) * 4;
-    for (int lx = 0; lx < 2; lx++)
-        for (int j = 0; j < 16; j++) {
-            int y = gy + j / 4, x = gx + j % 4;
-            c->mv[((mb * 2 + lx) * 16 + j) * 2] = c->gmv[GI(c, lx, y, x) * 2];
-            c->mv[((mb * 2 + lx) * 16 + j) * 2 + 1] =
-                c->gmv[GI(c, lx, y, x) * 2 + 1];
-        }
-    for (int q = 0; q < 4; q++) {
-        int qy = gy + (q / 2) * 2, qx = gx + (q % 2) * 2;
-        int r0 = c->gref[GI(c, 0, qy, qx)];
-        int r1 = c->gref[GI(c, 1, qy, qx)];
-        int8_t s0 = (int8_t)r0, s1 = (int8_t)r1;
-        c->refidx[(mb * 2 + 0) * 4 + q] = s0;
-        c->refidx[(mb * 2 + 1) * 4 + q] = s1;
-        c->ref_pic[(mb * 2 + 0) * 4 + q] =
-            (r0 >= 0 && r0 < c->n_l0) ? c->l0_pic_ids[r0] : -1;
-        c->ref_pic[(mb * 2 + 1) * 4 + q] =
-            (r1 >= 0 && r1 < c->n_l1) ? c->l1_pic_ids[r1] : -1;
-        c->pred_mode[mb * 4 + q] =
-            (s0 >= 0 && s1 >= 0) ? 2 : (s1 >= 0 ? 1 : (s0 >= 0 ? 0 : -1));
-    }
-}
-
-static void mark_intra_grids(PC *c, int mb) {
-    int mbx = mb % c->mb_w, mby = mb / c->mb_w;
-    for (int lx = 0; lx < 2; lx++)
-        for (int y = mby * 4; y < mby * 4 + 4; y++)
-            for (int x = mbx * 4; x < mbx * 4 + 4; x++) {
-                c->gmv[GI(c, lx, y, x) * 2] = 0;
-                c->gmv[GI(c, lx, y, x) * 2 + 1] = 0;
-                c->gref[GI(c, lx, y, x)] = -1;
-            }
-    for (int y = mby * 4; y < mby * 4 + 4; y++)
-        for (int x = mbx * 4; x < mbx * 4 + 4; x++)
-            c->gwritten[y * c->w4 + x] = 1;
-}
-
+/* ---------- the CABAC parser's own per-MB grids ---------- */
 static void set_nzc_l(PC *c, int mb, int v) {
-    int mbx = mb % c->mb_w, mby = mb / c->mb_w;
+    int mbx = mb % c->g.mb_w, mby = mb / c->g.mb_w;
     for (int y = mby * 4; y < mby * 4 + 4; y++)
         for (int x = mbx * 4; x < mbx * 4 + 4; x++)
-            c->nzc_l[y * c->w4 + x] = v;
+            c->nzc_l[y * c->g.w4 + x] = v;
 }
 
 static void set_nzc_c(PC *c, int mb, int v) {
-    int mbx = mb % c->mb_w, mby = mb / c->mb_w, w2 = c->mb_w * 2;
+    int mbx = mb % c->g.mb_w, mby = mb / c->g.mb_w, w2 = c->g.mb_w * 2;
     for (int comp = 0; comp < 2; comp++)
         for (int y = mby * 2; y < mby * 2 + 2; y++)
             for (int x = mbx * 2; x < mbx * 2 + 2; x++)
-                c->nzc_c[comp * (c->mb_h * 2) * w2 + y * w2 + x] = v;
+                c->nzc_c[comp * (c->g.mb_h * 2) * w2 + y * w2 + x] = v;
 }
 
 static void fill_gdirect(PC *c, int gx, int gy, int n, int v) {
     for (int y = gy; y < gy + n; y++)
         for (int x = gx; x < gx + n; x++)
-            c->gdirect[y * c->w4 + x] = (int8_t)v;
+            c->gdirect[y * c->g.w4 + x] = (int8_t)v;
 }
 
 /* ---------- syntax elements (CabacSliceDecoder) ---------- */
 static int skip_flag(PC *c, int mb, int is_b) {
     int left, top, inc = 0;
     left_top(c, mb, &left, &top);
-    if (left >= 0 && c->mb_type[left] != T_PSKIP && c->mb_type[left] != T_BSKIP)
+    if (left >= 0 && c->g.mb_type[left] != T_PSKIP && c->g.mb_type[left] != T_BSKIP)
         inc++;
-    if (top >= 0 && c->mb_type[top] != T_PSKIP && c->mb_type[top] != T_BSKIP)
+    if (top >= 0 && c->g.mb_type[top] != T_PSKIP &&
+        c->g.mb_type[top] != T_BSKIP)
         inc++;
     return decision(&c->e, (is_b ? CTX_B_SKIP : CTX_SKIP) + inc);
 }
@@ -529,9 +351,9 @@ static int mb_type_i_slice(PC *c, int mb) {
     Eng *e = &c->e;
     int left, top, inc = 0;
     left_top(c, mb, &left, &top);
-    if (left >= 0 && c->mb_type[left] != T_I4 && c->mb_type[left] != T_I8)
+    if (left >= 0 && c->g.mb_type[left] != T_I4 && c->g.mb_type[left] != T_I8)
         inc++;
-    if (top >= 0 && c->mb_type[top] != T_I4 && c->mb_type[top] != T_I8)
+    if (top >= 0 && c->g.mb_type[top] != T_I4 && c->g.mb_type[top] != T_I8)
         inc++;
     int base = CTX_MB_TYPE_I;
     if (!decision(e, base + inc)) return 0;
@@ -576,10 +398,11 @@ static int mb_type_b_slice(PC *c, int mb) {
     Eng *e = &c->e;
     int left, top, inc = 0;
     left_top(c, mb, &left, &top);
-    if (left >= 0 && c->mb_type[left] != T_BSKIP &&
-        c->mb_type[left] != T_BDIRECT)
+    if (left >= 0 && c->g.mb_type[left] != T_BSKIP &&
+        c->g.mb_type[left] != T_BDIRECT)
         inc++;
-    if (top >= 0 && c->mb_type[top] != T_BSKIP && c->mb_type[top] != T_BDIRECT)
+    if (top >= 0 && c->g.mb_type[top] != T_BSKIP &&
+        c->g.mb_type[top] != T_BDIRECT)
         inc++;
     if (!decision(e, CTX_MB_TYPE_B + inc)) return 0;
     if (!decision(e, CTX_MB_TYPE_B + 3))
@@ -639,7 +462,7 @@ static int intra4x4_pred_mode(PC *c) {
 }
 
 static int chroma_ctx_ok(PC *c, int n) {
-    int t = c->mb_type[n];
+    int t = c->g.mb_type[n];
     return t != T_IPCM && is_intra_type(t) && c->chroma_mode[n] > 0 &&
            c->chroma_mode[n] <= 3;
 }
@@ -660,21 +483,21 @@ static int intra_chroma_pred_mode(PC *c, int mb) {
 static int ref_ngb(PC *c, int mb, int lx, int nx, int ny, int *dir) {
     *dir = 0;
     if (nx < 0 || ny < 0) return 0;
-    int nmb = (ny / 4) * c->mb_w + (nx / 4);
+    int nmb = (ny / 4) * c->g.mb_w + (nx / 4);
     if (nmb == mb) {
-        if (!c->grefw[GI(c, lx, ny, nx)]) return 0;
+        if (!c->g.grefw[GI(&c->g, lx, ny, nx)]) return 0;
     } else {
-        if (c->slice_id[nmb] != c->slice_id[mb]) return 0;
-        if (c->mb_type[nmb] == T_IPCM) return 0;
+        if (c->g.slice_id[nmb] != c->g.slice_id[mb]) return 0;
+        if (c->g.mb_type[nmb] == T_IPCM) return 0;
     }
-    *dir = c->gdirect[ny * c->w4 + nx] != 0;
-    return c->gref[GI(c, lx, ny, nx)] > 0;
+    *dir = c->gdirect[ny * c->g.w4 + nx] != 0;
+    return c->g.gref[GI(&c->g, lx, ny, nx)] > 0;
 }
 
 /* clamp a ref_idx to one of list lx's pictures, else ref 0 */
 static int clamp_ref(PC *c, int lx, int r) {
-    int n = lx ? c->n_l1 : c->n_l0;
-    const int32_t *ids = lx ? c->l1_pic_ids : c->l0_pic_ids;
+    int n = lx ? c->g.n_l1 : c->g.n_l0;
+    const int32_t *ids = lx ? c->g.l1_pic_ids : c->g.l0_pic_ids;
     return (r >= 0 && r < n && ids[r] >= 0) ? r : 0;
 }
 
@@ -698,21 +521,21 @@ static int ref_idx(PC *c, int mb, int lx, int gx, int gy, int is_b) {
 static void note_ref(PC *c, int lx, int gx, int gy, int pw, int ph, int ref) {
     for (int y = gy; y < gy + ph; y++)
         for (int x = gx; x < gx + pw; x++) {
-            c->gref[GI(c, lx, y, x)] = ref;
-            c->grefw[GI(c, lx, y, x)] = 1;
+            c->g.gref[GI(&c->g, lx, y, x)] = ref;
+            c->g.grefw[GI(&c->g, lx, y, x)] = 1;
         }
 }
 
 static long long amvd(PC *c, int mb, int lx, int comp, int nx, int ny) {
     if (nx < 0 || ny < 0) return 0;
-    int nmb = (ny / 4) * c->mb_w + (nx / 4);
+    int nmb = (ny / 4) * c->g.mb_w + (nx / 4);
     if (nmb == mb) {
-        if (!c->gwritten[ny * c->w4 + nx]) return 0;
-    } else if (c->slice_id[nmb] != c->slice_id[mb]) {
+        if (!c->g.gwritten[ny * c->g.w4 + nx]) return 0;
+    } else if (c->g.slice_id[nmb] != c->g.slice_id[mb]) {
         return 0;
     }
-    if (c->gref[GI(c, lx, ny, nx)] < 0) return 0;
-    long long v = c->gmvd[GI(c, lx, ny, nx) * 2 + comp];
+    if (c->g.gref[GI(&c->g, lx, ny, nx)] < 0) return 0;
+    long long v = c->gmvd[GI(&c->g, lx, ny, nx) * 2 + comp];
     return v < 0 ? -v : v;
 }
 
@@ -752,8 +575,8 @@ static int cbp_ctx(PC *c, int mb) {
     left_top(c, mb, &left, &top);
     int lcbp = left >= 0 ? c->cbp[left] : 0;
     int tcbp = top >= 0 ? c->cbp[top] : 0;
-    int lok = left >= 0 && c->mb_type[left] != T_IPCM;
-    int tok = top >= 0 && c->mb_type[top] != T_IPCM;
+    int lok = left >= 0 && c->g.mb_type[left] != T_IPCM;
+    int tok = top >= 0 && c->g.mb_type[top] != T_IPCM;
     int btop0 = tok && (tcbp & 4) == 0, btop1 = tok && (tcbp & 8) == 0;
     int aleft0 = lok && (lcbp & 2) == 0, aleft1 = lok && (lcbp & 8) == 0;
     int b0, b1, b2, b3, cbp;
@@ -762,11 +585,12 @@ static int cbp_ctx(PC *c, int mb) {
     b2 = decision(e, CTX_CBP + aleft1 + ((!b0) << 1));
     b3 = decision(e, CTX_CBP + (!b2) + ((!b1) << 1));
     cbp = b0 | (b1 << 1) | (b2 << 2) | (b3 << 3);
-    int ib = top >= 0 && (c->mb_type[top] == T_IPCM || (c->cbp[top] >> 4));
-    int ia = left >= 0 && (c->mb_type[left] == T_IPCM || (c->cbp[left] >> 4));
+    int ib = top >= 0 && (c->g.mb_type[top] == T_IPCM || (c->cbp[top] >> 4));
+    int ia = left >= 0 &&
+             (c->g.mb_type[left] == T_IPCM || (c->cbp[left] >> 4));
     if (decision(e, CTX_CBP + 4 + ia + (ib << 1))) {
-        ib = top >= 0 && (c->mb_type[top] == T_IPCM || (c->cbp[top] >> 4) == 2);
-        ia = left >= 0 && (c->mb_type[left] == T_IPCM ||
+        ib = top >= 0 && (c->g.mb_type[top] == T_IPCM || (c->cbp[top] >> 4) == 2);
+        ia = left >= 0 && (c->g.mb_type[left] == T_IPCM ||
                            (c->cbp[left] >> 4) == 2);
         cbp |= 1 << (4 + decision(e, CTX_CBP + 8 + ia + (ib << 1)));
     }
@@ -799,12 +623,12 @@ static int delta_qp(PC *c) {
 static int blk_nz(PC *c, int mb, int luma, int comp, int nx, int ny) {
     if (nx < 0 || ny < 0) return -1;
     int scale = luma ? 4 : 2;
-    int nmb = (ny / scale) * c->mb_w + (nx / scale);
-    if (nmb != mb && c->slice_id[nmb] != c->slice_id[mb]) return -1;
-    if (nmb != mb && c->mb_type[nmb] == T_IPCM) return 1;
-    if (luma) return c->nzc_l[ny * c->w4 + nx] != 0;
-    int w2 = c->mb_w * 2;
-    return c->nzc_c[comp * (c->mb_h * 2) * w2 + ny * w2 + nx] != 0;
+    int nmb = (ny / scale) * c->g.mb_w + (nx / scale);
+    if (nmb != mb && c->g.slice_id[nmb] != c->g.slice_id[mb]) return -1;
+    if (nmb != mb && c->g.mb_type[nmb] == T_IPCM) return 1;
+    if (luma) return c->nzc_l[ny * c->g.w4 + nx] != 0;
+    int w2 = c->g.mb_w * 2;
+    return c->nzc_c[comp * (c->g.mb_h * 2) * w2 + ny * w2 + nx] != 0;
 }
 
 /* coded_block_flag; for the DC categories dc_bit 0 (I16 DC), 1, 2 (Cb,
@@ -813,12 +637,13 @@ static int cbf(PC *c, int mb, int prop, int gx, int gy, int comp,
                int dc_bit) {
     int left, top;
     left_top(c, mb, &left, &top);
-    int na = is_intra_type(c->mb_type[mb]), nb = na;
+    int na = is_intra_type(c->g.mb_type[mb]), nb = na;
     if (prop == I16_DC || prop == CHROMA_DC) {
         if (top >= 0)
-            nb = c->mb_type[top] == T_IPCM || ((c->cbf_dc[top] >> dc_bit) & 1);
+            nb = c->g.mb_type[top] == T_IPCM ||
+                 ((c->cbf_dc[top] >> dc_bit) & 1);
         if (left >= 0)
-            na = c->mb_type[left] == T_IPCM || ((c->cbf_dc[left] >> dc_bit) & 1);
+            na = c->g.mb_type[left] == T_IPCM || ((c->cbf_dc[left] >> dc_bit) & 1);
     } else {
         int luma = prop == I16_AC || prop == LUMA_4x4;
         int va = blk_nz(c, mb, luma, comp, gx - 1, gy);
@@ -925,10 +750,6 @@ static const int64_t *luma_dq(PC *c, int intra, int qp) {
     return c->dq4 + (intra ? 0 : 3) * 52 * 16 + row * 16;
 }
 
-static inline int32_t wrap16(int64_t x) {
-    return (int32_t)(int16_t)(x & 0xFFFF);
-}
-
 /* dequantise a 4x4 block of levels in raster order into dst (all 16
  * positions; position 0 keeps dst[0] when keep_dc) */
 static void dequant4(const int64_t *dq, const int32_t *blkc, int32_t *dst,
@@ -959,7 +780,7 @@ static int dequant8(PC *c, int intra, int qp, const int32_t *lev,
  * whose 4x4 path the I/P slices without the 8x8 transform run. */
 static __attribute__((noinline)) int
 store_luma8x8(PC *c, int mb, int cbp, int intra, int qp) {
-    int mbx = mb % c->mb_w, mby = mb / c->mb_w, w4 = c->w4;
+    int mbx = mb % c->g.mb_w, mby = mb / c->g.mb_w, w4 = c->g.w4;
     int32_t sig[64], blkc[64];
     c->used8 = 1;
     for (int blk8 = 0; blk8 < 4; blk8++) {
@@ -981,9 +802,9 @@ store_luma8x8(PC *c, int mb, int cbp, int intra, int qp) {
 
 /* the residual of one MB and its QP (_store_mb_residual_cabac) */
 static int store_residual(PC *c, int mb, int cbp, int is_i16) {
-    int mbx = mb % c->mb_w, mby = mb / c->mb_w;
-    int w4 = c->w4, w2 = c->mb_w * 2;
-    int t = c->mb_type[mb];
+    int mbx = mb % c->g.mb_w, mby = mb / c->g.mb_w;
+    int w4 = c->g.w4, w2 = c->g.mb_w * 2;
+    int t = c->g.mb_type[mb];
     int intra = t == T_I4 || t == T_I16 || t == T_I8;
     if (is_i16 || cbp) {
         int delta = delta_qp(c);
@@ -1083,7 +904,7 @@ static int store_residual(PC *c, int mb, int cbp, int is_i16) {
             const int64_t *dq_c = c->dq4 + prop * 52 * 16 + qp_c[comp] * 16;
             for (int k = 0; k < 4; k++) {
                 int cx = mbx * 2 + k % 2, cy = mby * 2 + k / 2;
-                int32_t *nz = c->nzc_c + comp * (c->mb_h * 2) * w2 + cy * w2 + cx;
+                int32_t *nz = c->nzc_c + comp * (c->g.mb_h * 2) * w2 + cy * w2 + cx;
                 if (cbf(c, mb, CHROMA_AC, cx, cy, comp, 0)) {
                     if ((tc = residual_levels(c, CHROMA_AC, sig)) < 0) return -1;
                     memset(blkc, 0, sizeof(blkc));
@@ -1144,21 +965,21 @@ static int col_zero(PC *c, int bx, int by) {
  * block: its neighbours lie outside it, so they are final by then */
 static void spatial_mb(PC *c, int mb) {
     if (c->sd_mb == mb) return;
-    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    int gx = (mb % c->g.mb_w) * 4, gy = (mb / c->g.mb_w) * 4;
     for (int lx = 0; lx < 2; lx++) {
         int aa, ab, ac, ra, rb, rc;
         int32_t mva[2], mvb[2], mvc[2];
-        blk_info(c, gx - 1, gy, lx, mb, &aa, &ra, mva);
-        blk_info(c, gx, gy - 1, lx, mb, &ab, &rb, mvb);
-        blk_info(c, gx + 4, gy - 1, lx, mb, &ac, &rc, mvc);
-        if (!ac) blk_info(c, gx - 1, gy - 1, lx, mb, &ac, &rc, mvc);
+        blk_info(&c->g, gx - 1, gy, lx, mb, &aa, &ra, mva);
+        blk_info(&c->g, gx, gy - 1, lx, mb, &ab, &rb, mvb);
+        blk_info(&c->g, gx + 4, gy - 1, lx, mb, &ac, &rc, mvc);
+        if (!ac) blk_info(&c->g, gx - 1, gy - 1, lx, mb, &ac, &rc, mvc);
         int ref = -1;
         int cand[3] = {aa ? ra : -1, ab ? rb : -1, ac ? rc : -1};
         for (int k = 0; k < 3; k++)
             if (cand[k] >= 0 && (ref < 0 || cand[k] < ref)) ref = cand[k];
         c->sd_ref[lx] = ref;
         c->sd_mv[lx][0] = c->sd_mv[lx][1] = 0;
-        if (ref >= 0) pred_mv(c, gx, gy, 4, 4, lx, ref, mb, c->sd_mv[lx]);
+        if (ref >= 0) pred_mv(&c->g, gx, gy, 4, 4, lx, ref, mb, c->sd_mv[lx]);
     }
     if (c->sd_ref[0] < 0 && c->sd_ref[1] < 0) {
         c->sd_ref[0] = c->sd_ref[1] = 0;
@@ -1191,12 +1012,12 @@ static int temporal(PC *c, int bx, int by, int *ref0, int32_t mv0[2],
     }
     int r = 0;
     if (!intra && !from_l1)     /* the lowest L0 index of the picture */
-        for (int k = 0; k < c->n_l0; k++)
-            if (c->l0_pic_ids[k] >= 0 && c->l0_pic_ids[k] == col_id) {
+        for (int k = 0; k < c->g.n_l0; k++)
+            if (c->g.l0_pic_ids[k] >= 0 && c->g.l0_pic_ids[k] == col_id) {
                 r = k;
                 break;
             }
-    long long dsf = r < c->n_l0 ? c->dsf[r] : 256;
+    long long dsf = r < c->g.n_l0 ? c->dsf[r] : 256;
     for (int k = 0; k < 2; k++) {
         long long v = (dsf * mvc[k] + 128) >> 8;
         if (v > INT32_MAX || v < INT32_MIN) { c->err = 6; return -1; }
@@ -1219,7 +1040,7 @@ static int apply_direct(PC *c, int mb, int gx0, int gy0, int nblk) {
         }
         c->mb16[mb] = (uint8_t)promoted;
         if (c->compat)
-            c->ibs_mode[mb] = c->mb_type[mb] == T_BSKIP ? 2 : (promoted ? 1 : 0);
+            c->ibs_mode[mb] = c->g.mb_type[mb] == T_BSKIP ? 2 : (promoted ? 1 : 0);
     } else {
         c->sub_direct[mb] = 1;
     }
@@ -1234,7 +1055,8 @@ static int apply_direct(PC *c, int mb, int gx0, int gy0, int nblk) {
                 for (int lx = 0; lx < 2; lx++) {
                     int use = c->sd_use[lx], ref = c->sd_ref[lx];
                     int zero = !use || (cz && ref == 0);
-                    set_partition(c, bx, by, step, step, lx, use ? ref : -1,
+                    set_partition(&c->g, bx, by, step, step, lx,
+                                  use ? ref : -1,
                                   zero ? 0 : c->sd_mv[lx][0],
                                   zero ? 0 : c->sd_mv[lx][1]);
                 }
@@ -1242,8 +1064,8 @@ static int apply_direct(PC *c, int mb, int gx0, int gy0, int nblk) {
                 int r0;
                 int32_t m0[2], m1[2];
                 if (temporal(c, bx, by, &r0, m0, m1)) return -1;
-                set_partition(c, bx, by, step, step, 0, r0, m0[0], m0[1]);
-                set_partition(c, bx, by, step, step, 1, 0, m1[0], m1[1]);
+                set_partition(&c->g, bx, by, step, step, 0, r0, m0[0], m0[1]);
+                set_partition(&c->g, bx, by, step, step, 1, 0, m1[0], m1[1]);
             }
         }
     return 0;
@@ -1252,12 +1074,12 @@ static int apply_direct(PC *c, int mb, int gx0, int gy0, int nblk) {
 /* ---------- MBs ---------- */
 /* the intra MB after its mb_type (raw 0 I_NxN, 1..24 I16x16, 25 IPCM) */
 static int decode_i_mb(PC *c, int mb, int raw) {
-    int mbx = mb % c->mb_w, mby = mb / c->mb_w, w4 = c->w4;
-    for (int q = 0; q < 4; q++) c->pred_mode[mb * 4 + q] = -1;
+    int mbx = mb % c->g.mb_w, mby = mb / c->g.mb_w, w4 = c->g.w4;
+    for (int q = 0; q < 4; q++) c->g.pred_mode[mb * 4 + q] = -1;
 
     if (raw == 25) {   /* IPCM: the samples start at the next byte */
         Eng *e = &c->e;
-        c->mb_type[mb] = T_IPCM;
+        c->g.mb_type[mb] = T_IPCM;
         long long bpos = (e->pos + 7) >> 3, nbytes = e->nbits >> 3;
         if (bpos + 384 > nbytes) { c->err = 2; return -1; }
         memcpy(c->ipcm_buf + (size_t)mb * 384, e->data + bpos, 384);
@@ -1267,7 +1089,7 @@ static int decode_i_mb(PC *c, int mb, int raw) {
         set_nzc_c(c, mb, 16);
         for (int y = mby * 4; y < mby * 4 + 4; y++)
             for (int x = mbx * 4; x < mbx * 4 + 4; x++)
-                c->i4_grid[y * w4 + x] = 2;
+                c->g.i4_grid[y * w4 + x] = 2;
         c->cbf_dc[mb] = 7;
         c->last_dqp = 0;
         eng_start(e, (bpos + 384) * 8);   /* the contexts carry on */
@@ -1277,7 +1099,7 @@ static int decode_i_mb(PC *c, int mb, int raw) {
     int cbp;
     if (raw == 0) {
         int t8 = c->t8_mode ? transform8_flag(c, mb) : 0;
-        c->mb_type[mb] = t8 ? T_I8 : T_I4;
+        c->g.mb_type[mb] = t8 ? T_I8 : T_I4;
         c->transform8[mb] = (uint8_t)t8;
         int32_t modes[16] = {0};
         for (int k = 0; k < (t8 ? 4 : 16); k++) {
@@ -1290,17 +1112,18 @@ static int decode_i_mb(PC *c, int mb, int raw) {
                 by = ZS2R[k] / 4;
             }
             int gx = mbx * 4 + bx, gy = mby * 4 + by;
-            int pred = pred_i4_mode(c, gx, gy);
+            int pred = pred_i4_mode(&c->g, gx, gy);
             int rem = intra4x4_pred_mode(c);
             int mode = rem < 0 ? pred : (rem < pred ? rem : rem + 1);
             if (t8) {
-                c->i4_grid[gy * w4 + gx] = c->i4_grid[gy * w4 + gx + 1] = mode;
-                c->i4_grid[(gy + 1) * w4 + gx] = mode;
-                c->i4_grid[(gy + 1) * w4 + gx + 1] = mode;
+                c->g.i4_grid[gy * w4 + gx] = mode;
+                c->g.i4_grid[gy * w4 + gx + 1] = mode;
+                c->g.i4_grid[(gy + 1) * w4 + gx] = mode;
+                c->g.i4_grid[(gy + 1) * w4 + gx + 1] = mode;
                 modes[by * 4 + bx] = modes[by * 4 + bx + 1] = mode;
                 modes[(by + 1) * 4 + bx] = modes[(by + 1) * 4 + bx + 1] = mode;
             } else {
-                c->i4_grid[gy * w4 + gx] = mode;
+                c->g.i4_grid[gy * w4 + gx] = mode;
                 modes[by * 4 + bx] = mode;
             }
         }
@@ -1308,17 +1131,17 @@ static int decode_i_mb(PC *c, int mb, int raw) {
         c->chroma_mode[mb] = intra_chroma_pred_mode(c, mb);
         cbp = cbp_ctx(c, mb);
     } else {
-        c->mb_type[mb] = T_I16;
+        c->g.mb_type[mb] = T_I16;
         int mt = raw - 1;
         c->i16_mode[mb] = mt & 3;
         cbp = c->cbp_i16[mt >> 2];
         for (int y = mby * 4; y < mby * 4 + 4; y++)
             for (int x = mbx * 4; x < mbx * 4 + 4; x++)
-                c->i4_grid[y * w4 + x] = 2;
+                c->g.i4_grid[y * w4 + x] = 2;
         c->chroma_mode[mb] = intra_chroma_pred_mode(c, mb);
     }
     c->cbp[mb] = cbp;
-    return store_residual(c, mb, cbp, c->mb_type[mb] == T_I16);
+    return store_residual(c, mb, cbp, c->g.mb_type[mb] == T_I16);
 }
 
 /* a partition's list-lx mvd pair, its MV from the MVP, and its mvd */
@@ -1329,26 +1152,26 @@ static int set_part_with_mvd(PC *c, int mb, int lx, int px, int py, int pw,
     int32_t d1 = mvd(c, mb, lx, 1, px, py);
     if (c->err) return -1;
     int32_t mvp[2];
-    pred_mv(c, px, py, pw, ph, lx, ref, mb, mvp);
+    pred_mv(&c->g, px, py, pw, ph, lx, ref, mb, mvp);
     /* int32 sums wrap, as numpy's do */
-    set_partition(c, px, py, pw, ph, lx, ref,
+    set_partition(&c->g, px, py, pw, ph, lx, ref,
                   (int32_t)((uint32_t)mvp[0] + (uint32_t)d0),
                   (int32_t)((uint32_t)mvp[1] + (uint32_t)d1));
     for (int y = py; y < py + ph; y++)
         for (int x = px; x < px + pw; x++) {
-            c->gmvd[GI(c, lx, y, x) * 2] = d0;
-            c->gmvd[GI(c, lx, y, x) * 2 + 1] = d1;
+            c->gmvd[GI(&c->g, lx, y, x) * 2] = d0;
+            c->gmvd[GI(&c->g, lx, y, x) * 2 + 1] = d1;
         }
     return 0;
 }
 
 static void clear_block_grids(PC *c, int mb, int direct) {
-    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    int gx = (mb % c->g.mb_w) * 4, gy = (mb / c->g.mb_w) * 4;
     for (int lx = 0; lx < 2; lx++)
         for (int y = gy; y < gy + 4; y++)
             for (int x = gx; x < gx + 4; x++) {
-                c->gmvd[GI(c, lx, y, x) * 2] = 0;
-                c->gmvd[GI(c, lx, y, x) * 2 + 1] = 0;
+                c->gmvd[GI(&c->g, lx, y, x) * 2] = 0;
+                c->gmvd[GI(&c->g, lx, y, x) * 2 + 1] = 0;
             }
     fill_gdirect(c, gx, gy, 4, direct);
 }
@@ -1369,24 +1192,24 @@ static int inter_residual(PC *c, int mb, int t8_allowed) {
 }
 
 static int decode_p_mb(PC *c, int mb) {
-    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    int gx = (mb % c->g.mb_w) * 4, gy = (mb / c->g.mb_w) * 4;
     clear_block_grids(c, mb, 0);
     int raw = mb_type_p_slice(c);
     if (raw >= 5) {
         if (decode_i_mb(c, mb, raw - 5)) return -1;
-        mark_intra_grids(c, mb);
+        mark_intra_grids(&c->g, mb);
         return 0;
     }
     int t8_allowed = 1;
-    for (int q = 0; q < 4; q++) c->pred_mode[mb * 4 + q] = 0;
+    for (int q = 0; q < 4; q++) c->g.pred_mode[mb * 4 + q] = 0;
     if (raw == 0) {
-        c->mb_type[mb] = T_P16;
+        c->g.mb_type[mb] = T_P16;
         int ref = ref_idx(c, mb, 0, gx, gy, 0);
         if (c->err) return -1;
         if (set_part_with_mvd(c, mb, 0, gx, gy, 4, 4, ref)) return -1;
     } else if (raw == 1 || raw == 2) {
         /* 16x8 (partitions stacked) or 8x16 (side by side) */
-        c->mb_type[mb] = raw == 1 ? T_P168 : T_P816;
+        c->g.mb_type[mb] = raw == 1 ? T_P168 : T_P816;
         int pw = raw == 1 ? 4 : 2, ph = raw == 1 ? 2 : 4;
         int px[2], py[2], refs[2];
         for (int p = 0; p < 2; p++) {
@@ -1400,7 +1223,7 @@ static int decode_p_mb(PC *c, int mb) {
             if (set_part_with_mvd(c, mb, 0, px[p], py[p], pw, ph, refs[p]))
                 return -1;
     } else {           /* P_8x8 (raw 3; the tree never gives P_8x8ref0) */
-        c->mb_type[mb] = T_P88;
+        c->g.mb_type[mb] = T_P88;
         int subs[4], refs[4];
         for (int q = 0; q < 4; q++) subs[q] = sub_mb_type_p(c);
         for (int q = 0; q < 4; q++) {
@@ -1425,8 +1248,8 @@ static int decode_p_mb(PC *c, int mb) {
             if (st != 0) t8_allowed = 0;
         }
     }
-    set_partition(c, gx, gy, 4, 4, 1, -1, 0, 0);
-    finish_inter_mb(c, mb);
+    set_partition(&c->g, gx, gy, 4, 4, 1, -1, 0, 0);
+    finish_inter_mb(&c->g, mb);
     return inter_residual(c, mb, t8_allowed);
 }
 
@@ -1442,21 +1265,21 @@ static inline void sub_part_pos(int qx, int qy, int pw, int ph, int part,
 }
 
 static int decode_b_mb(PC *c, int mb) {
-    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    int gx = (mb % c->g.mb_w) * 4, gy = (mb / c->g.mb_w) * 4;
     clear_block_grids(c, mb, 0);
     int raw = mb_type_b_slice(c, mb);
     if (raw >= 23) {
         if (decode_i_mb(c, mb, raw - 23)) return -1;
-        mark_intra_grids(c, mb);
+        mark_intra_grids(&c->g, mb);
         return 0;
     }
     int t8_allowed = 1;
     if (raw == 0) {
-        c->mb_type[mb] = T_BDIRECT;
+        c->g.mb_type[mb] = T_BDIRECT;
         if (apply_direct(c, mb, gx, gy, 4)) return -1;
         fill_gdirect(c, gx, gy, 4, 1);
     } else if (raw <= 3) {
-        c->mb_type[mb] = T_B16;
+        c->g.mb_type[mb] = T_B16;
         int mode = raw - 1, use[2] = {mode != 1, mode != 0}, refs[2] = {0, 0};
         for (int lx = 0; lx < 2; lx++)
             if (use[lx]) {
@@ -1464,14 +1287,14 @@ static int decode_b_mb(PC *c, int mb) {
                 if (c->err) return -1;
             }
         for (int lx = 0; lx < 2; lx++)
-            if (!use[lx]) set_partition(c, gx, gy, 4, 4, lx, -1, 0, 0);
+            if (!use[lx]) set_partition(&c->g, gx, gy, 4, 4, lx, -1, 0, 0);
         for (int lx = 0; lx < 2; lx++)
             if (use[lx] && set_part_with_mvd(c, mb, lx, gx, gy, 4, 4, refs[lx]))
                 return -1;
     } else if (raw <= 21) {
         int t = raw - 4, is16x8 = (t % 2) == 0;
         const int *modes = B_TWOPART[t / 2];
-        c->mb_type[mb] = is16x8 ? T_B168 : T_B816;
+        c->g.mb_type[mb] = is16x8 ? T_B168 : T_B816;
         int pw = is16x8 ? 4 : 2, ph = is16x8 ? 2 : 4;
         int px[2] = {gx, is16x8 ? gx : gx + 2};
         int py[2] = {gy, is16x8 ? gy + 2 : gy};
@@ -1487,7 +1310,7 @@ static int decode_b_mb(PC *c, int mb) {
         for (int p = 0; p < 2; p++)
             for (int lx = 0; lx < 2; lx++)
                 if (refs[p][lx] < 0)
-                    set_partition(c, px[p], py[p], pw, ph, lx, -1, 0, 0);
+                    set_partition(&c->g, px[p], py[p], pw, ph, lx, -1, 0, 0);
         for (int lx = 0; lx < 2; lx++)
             for (int p = 0; p < 2; p++)
                 if (refs[p][lx] >= 0 &&
@@ -1495,7 +1318,7 @@ static int decode_b_mb(PC *c, int mb) {
                                       refs[p][lx]))
                     return -1;
     } else {           /* 22: B_8x8 */
-        c->mb_type[mb] = T_B88;
+        c->g.mb_type[mb] = T_B88;
         int subs[4], refs[4][2];
         for (int q = 0; q < 4; q++) {
             subs[q] = sub_mb_type_b(c);
@@ -1526,7 +1349,7 @@ static int decode_b_mb(PC *c, int mb) {
             int qx = gx + (q % 2) * 2, qy = gy + (q / 2) * 2;
             for (int lx = 0; lx < 2; lx++)
                 if (refs[q][lx] < 0)
-                    set_partition(c, qx, qy, 2, 2, lx, -1, 0, 0);
+                    set_partition(&c->g, qx, qy, 2, 2, lx, -1, 0, 0);
         }
         for (int lx = 0; lx < 2; lx++)
             for (int q = 0; q < 4; q++) {
@@ -1542,38 +1365,38 @@ static int decode_b_mb(PC *c, int mb) {
                 }
             }
     }
-    finish_inter_mb(c, mb);
+    finish_inter_mb(&c->g, mb);
     return inter_residual(c, mb, t8_allowed);
 }
 
 static void decode_p_skip(PC *c, int mb) {
-    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    int gx = (mb % c->g.mb_w) * 4, gy = (mb / c->g.mb_w) * 4;
     clear_block_grids(c, mb, 1);
-    c->mb_type[mb] = T_PSKIP;
+    c->g.mb_type[mb] = T_PSKIP;
     int32_t mv[2];
-    pred_skip_mv(c, gx, gy, mb, mv);
-    set_partition(c, gx, gy, 4, 4, 0, 0, mv[0], mv[1]);
-    set_partition(c, gx, gy, 4, 4, 1, -1, 0, 0);
+    pred_skip_mv(&c->g, gx, gy, mb, mv);
+    set_partition(&c->g, gx, gy, 4, 4, 0, 0, mv[0], mv[1]);
+    set_partition(&c->g, gx, gy, 4, 4, 1, -1, 0, 0);
     c->cbp[mb] = 0;
     c->qp[mb] = c->cur_qp;
     c->last_dqp = 0;
-    finish_inter_mb(c, mb);
+    finish_inter_mb(&c->g, mb);
 }
 
 static int decode_b_skip(PC *c, int mb) {
-    int gx = (mb % c->mb_w) * 4, gy = (mb / c->mb_w) * 4;
+    int gx = (mb % c->g.mb_w) * 4, gy = (mb / c->g.mb_w) * 4;
     clear_block_grids(c, mb, 1);
-    c->mb_type[mb] = T_BSKIP;
+    c->g.mb_type[mb] = T_BSKIP;
     if (apply_direct(c, mb, gx, gy, 4)) return -1;
     c->cbp[mb] = 0;
     c->qp[mb] = c->cur_qp;
     c->last_dqp = 0;
-    finish_inter_mb(c, mb);
+    finish_inter_mb(&c->g, mb);
     return 0;
 }
 
 /* ---------- entry ---------- */
-/* ptrs / params layouts in native.py (parse_cabac_slice_native).
+/* ptrs / params layouts in decoder/cbind.py (parse_cabac_slice_native).
  * out: [0] one past the last MB, [1] the engine's end bit, [2] error
  * (PC.err), [3] bins decoded, [4] MBs marked correct, [5] 1 if an MB
  * reached its residual's QP, [6] 1 if an MB reached the 8x8 residual.
@@ -1591,38 +1414,38 @@ long long parse_cabac_slice(const void **ptrs, const int64_t *params,
     c.chroma_qp = (const int32_t *)ptrs[i++];
     c.zigzag = (const int32_t *)ptrs[i++];
     c.cbp_i16 = (const int32_t *)ptrs[i++];
-    c.l0_pic_ids = (const int32_t *)ptrs[i++];
-    c.mb_type = (int32_t *)ptrs[i++];
-    c.slice_id = (int32_t *)ptrs[i++];
+    c.g.l0_pic_ids = (const int32_t *)ptrs[i++];
+    c.g.mb_type = (int32_t *)ptrs[i++];
+    c.g.slice_id = (int32_t *)ptrs[i++];
     c.transform8 = (uint8_t *)ptrs[i++];
     c.i16_mode = (int32_t *)ptrs[i++];
     c.chroma_mode = (int32_t *)ptrs[i++];
     c.i4_modes = (int32_t *)ptrs[i++];
     c.cbp = (int32_t *)ptrs[i++];
     c.qp = (int32_t *)ptrs[i++];
-    c.mv = (int32_t *)ptrs[i++];
-    c.refidx = (int8_t *)ptrs[i++];
-    c.ref_pic = (int32_t *)ptrs[i++];
-    c.pred_mode = (int8_t *)ptrs[i++];
+    c.g.mv = (int32_t *)ptrs[i++];
+    c.g.refidx = (int8_t *)ptrs[i++];
+    c.g.ref_pic = (int32_t *)ptrs[i++];
+    c.g.pred_mode = (int8_t *)ptrs[i++];
     c.coeffs_l = (int32_t *)ptrs[i++];
     c.coeffs_c = (int32_t *)ptrs[i++];
     c.nzc_l = (int32_t *)ptrs[i++];
     c.nzc_c = (int32_t *)ptrs[i++];
-    c.disable_deblock = (int32_t *)ptrs[i++];
-    c.alpha_off = (int32_t *)ptrs[i++];
-    c.beta_off = (int32_t *)ptrs[i++];
+    c.g.disable_deblock = (int32_t *)ptrs[i++];
+    c.g.alpha_off = (int32_t *)ptrs[i++];
+    c.g.beta_off = (int32_t *)ptrs[i++];
     c.mb_correct = (uint8_t *)ptrs[i++];
-    c.i4_grid = (int32_t *)ptrs[i++];
-    c.gmv = (int32_t *)ptrs[i++];
-    c.gref = (int32_t *)ptrs[i++];
-    c.gwritten = (uint8_t *)ptrs[i++];
-    c.grefw = (uint8_t *)ptrs[i++];
+    c.g.i4_grid = (int32_t *)ptrs[i++];
+    c.g.gmv = (int32_t *)ptrs[i++];
+    c.g.gref = (int32_t *)ptrs[i++];
+    c.g.gwritten = (uint8_t *)ptrs[i++];
+    c.g.grefw = (uint8_t *)ptrs[i++];
     c.cbf_dc = (int32_t *)ptrs[i++];
     c.gmvd = (int32_t *)ptrs[i++];
     c.gdirect = (int8_t *)ptrs[i++];
     c.ipcm_buf = (uint8_t *)ptrs[i++];
     c.ipcm_flag = (uint8_t *)ptrs[i++];
-    c.l1_pic_ids = (const int32_t *)ptrs[i++];
+    c.g.l1_pic_ids = (const int32_t *)ptrs[i++];
     c.dq8 = (const int64_t *)ptrs[i++];
     c.zigzag8 = (const int32_t *)ptrs[i++];
     c.coeffs8 = (int32_t *)ptrs[i++];
@@ -1644,23 +1467,23 @@ long long parse_cabac_slice(const void **ptrs, const int64_t *params,
     long long start_bit = params[i++];
     int is_i = (int)params[i++];
     c.first_mb = (int)params[i++];
-    c.mb_w = (int)params[i++];
-    c.mb_h = (int)params[i++];
-    c.slice_idx = (int)params[i++];
+    c.g.mb_w = (int)params[i++];
+    c.g.mb_h = (int)params[i++];
+    c.g.slice_idx = (int)params[i++];
     c.cur_qp = (int)params[i++];
     int init_idc = (int)params[i++];
     c.num_ref_l0 = (int)params[i++];
-    c.n_l0 = (int)params[i++];
-    c.constrained = (int)params[i++];
-    c.ddb_idc = (int)params[i++];
-    c.a_off = (int)params[i++];
-    c.b_off = (int)params[i++];
+    c.g.n_l0 = (int)params[i++];
+    c.g.constrained = (int)params[i++];
+    c.g.ddb_idc = (int)params[i++];
+    c.g.a_off = (int)params[i++];
+    c.g.b_off = (int)params[i++];
     c.coff0 = (int)params[i++];
     c.coff1 = (int)params[i++];
     int is_b = (int)params[i++];
     c.t8_mode = (int)params[i++];
     c.num_ref_l1 = (int)params[i++];
-    c.n_l1 = (int)params[i++];
+    c.g.n_l1 = (int)params[i++];
     c.spatial = (int)params[i++];
     c.direct_8x8 = (int)params[i++];
     c.has_col = (int)params[i++];
@@ -1670,8 +1493,8 @@ long long parse_cabac_slice(const void **ptrs, const int64_t *params,
     c.col_n16 = (int)params[i++];
     c.compat = (int)params[i++];
     if (!c.col_n16) c.col_mb16 = NULL;
-    c.w4 = c.mb_w * 4;
-    c.h4 = c.mb_h * 4;
+    c.g.w4 = c.g.mb_w * 4;
+    c.g.h4 = c.g.mb_h * 4;
     c.sd_mb = -1;
 
     int init_qp = c.cur_qp < 0 ? 0 : (c.cur_qp > 51 ? 51 : c.cur_qp);
@@ -1679,9 +1502,9 @@ long long parse_cabac_slice(const void **ptrs, const int64_t *params,
     eng_start(&c.e, start_bit);
 
     int mb = c.first_mb;
-    long long n_mb = (long long)c.mb_w * c.mb_h, done = 0;
+    long long n_mb = (long long)c.g.mb_w * c.g.mb_h, done = 0;
     while (mb < n_mb) {
-        mb_common_init(&c, mb);
+        mb_common_init(&c.g, mb);
         int rc;
         if (is_i)
             rc = decode_i_mb(&c, mb, mb_type_i_slice(&c, mb));

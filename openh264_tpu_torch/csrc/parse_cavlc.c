@@ -2,12 +2,15 @@
  *
  * Copied from openh264_tpu/native/parse_cavlc.c, which is host code there
  * too. Built with the host compiler by openh264_tpu_torch/_build.py and
- * bound with ctypes by openh264_tpu_torch/native.py
- * (parse_cavlc_slice_native). Nothing here runs on the card.
+ * bound with ctypes by openh264_tpu_torch/decoder/cbind.py
+ * (parse_cavlc_slice_native). Nothing here runs on the card. Its MB
+ * prediction core (grids, neighbours, MV prediction) is csrc/mb_pred.h,
+ * shared with csrc/parse_cabac.c.
  *
- * decoder/slice_dec.py routes as the JAX package does: I and P CAVLC
- * slices without FMO come here, FMO slices go to its per-MB Python
- * parser, and the rest (B slices, the 8x8 transform) are refused with
+ * The decoder's one routing rule (decoder/slice_dec.py c_parses) routes
+ * as the JAX package does: I and P CAVLC slices without FMO or the 8x8
+ * transform come here, the rest (B, FMO, transform_8x8_mode) go to the
+ * per-MB Python parser, and the binding refuses them with
  * NotImplementedError; this parser never falls back to Python. The
  * original note follows.
  *
@@ -30,6 +33,8 @@
 #include <stdint.h>
 #include <stddef.h>
 #include <string.h>
+
+#include "mb_pred.h"
 
 /* ---------- bit reader (MSB first over the unescaped RBSP) ---------- */
 typedef struct {
@@ -115,10 +120,8 @@ typedef struct {
     const int64_t *dq4;           /* [6][52][16] effective (see glue) */
     const int32_t *chroma_qp;     /* [52] */
     const int32_t *zigzag;        /* [16] */
+    MbGrid g;                     /* the grids of csrc/mb_pred.h */
     /* outputs */
-    int32_t *mb_type;
-    int32_t *slice_id;
-    int32_t *i4_grid;             /* [H4*W4] */
     int32_t *i16_mode;
     int32_t *i4_modes;            /* [n][16] */
     int32_t *chroma_mode;
@@ -128,26 +131,13 @@ typedef struct {
     int32_t *nzc_c;               /* [2][H2*W2] */
     int32_t *coeffs_l;            /* [n][16][16] */
     int32_t *coeffs_c;            /* [n][2][4][16] */
-    int32_t *mv;                  /* [n][2][16][2] */
-    int8_t  *refidx;              /* [n][2][4] */
-    int32_t *ref_pic;             /* [n][2][4] */
-    int8_t  *pred_mode;           /* [n][4] */
-    int32_t *gmv;                 /* [2][H4][W4][2] */
-    int32_t *gref;                /* [2][H4][W4] */
-    uint8_t *gwritten;            /* [H4][W4] */
-    uint8_t *grefw;               /* [2][H4][W4] */
-    const int32_t *l0_pic_ids;    /* [n_l0], -1 for missing */
-    int32_t *disable_deblock;
-    int32_t *alpha_off;
-    int32_t *beta_off;
     uint8_t *mb_correct;
     uint8_t *ipcm_buf;            /* [n][384] */
     uint8_t *ipcm_flag;           /* [n] */
     uint8_t *transform8;          /* [n] (always 0 here) */
     /* params */
-    int slice_type, first_mb, mb_w, mb_h, slice_idx;
-    int num_ref_l0, constrained, ddb_idc, a_off, b_off;
-    int coff0, coff1, n_l0;
+    int slice_type, first_mb;
+    int num_ref_l0, coff0, coff1;
     int cur_qp;
     BR br;
 } PC;
@@ -156,27 +146,14 @@ enum { I_SLICE_T = 2, P_SLICE_T = 0 };
 enum { T_I4 = 0, T_I16 = 1, T_IPCM = 2,
        T_P16 = 4, T_P168 = 5, T_P816 = 6, T_P88 = 7, T_PSKIP = 8 };
 
-static const int ZS2R[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13,
-                             10, 11, 14, 15};
-
 /* ---------- helpers ---------- */
-static inline int mb_avail(PC *c, int mbx, int mby) {
-    if (mbx < 0 || mby < 0 || mbx >= c->mb_w || mby >= c->mb_h) return 0;
-    return c->slice_id[mby * c->mb_w + mbx] == c->slice_idx;
-}
-
-static inline int mb_is_intra(PC *c, int mbx, int mby) {
-    int t = c->mb_type[mby * c->mb_w + mbx];
-    return t >= 0 && t <= 3;
-}
-
 static inline int nzc_at(PC *c, int bx, int by, int luma, int comp) {
     int scale = luma ? 4 : 2;
     if (bx < 0 || by < 0) return -1;
-    if (!mb_avail(c, bx / scale, by / scale)) return -1;
-    if (luma) return c->nzc_l[by * c->mb_w * 4 + bx];
-    return c->nzc_c[comp * (c->mb_w * 2) * (c->mb_h * 2)
-                    + by * c->mb_w * 2 + bx];
+    if (!mb_avail(&c->g, bx / scale, by / scale)) return -1;
+    if (luma) return c->nzc_l[by * c->g.mb_w * 4 + bx];
+    return c->nzc_c[comp * (c->g.mb_w * 2) * (c->g.mb_h * 2)
+                    + by * c->g.mb_w * 2 + bx];
 }
 
 static inline int comb_nc(int na, int nb) {
@@ -193,111 +170,6 @@ static inline int nc_luma(PC *c, int gx, int gy) {
 static inline int nc_chroma(PC *c, int comp, int cx, int cy) {
     return comb_nc(nzc_at(c, cx - 1, cy, 0, comp),
                    nzc_at(c, cx, cy - 1, 0, comp));
-}
-
-static inline int i4_mode_at(PC *c, int bx, int by) {
-    if (bx < 0 || by < 0) return -1;
-    int mbx = bx / 4, mby = by / 4;
-    if (!mb_avail(c, mbx, mby)) return -1;
-    if (!mb_is_intra(c, mbx, mby)) return c->constrained ? -1 : 2;
-    int m = c->i4_grid[by * c->mb_w * 4 + bx];
-    return m < 0 ? 2 : m;
-}
-
-static inline int pred_i4_mode(PC *c, int gx, int gy) {
-    int ma = i4_mode_at(c, gx - 1, gy);
-    int mb = i4_mode_at(c, gx, gy - 1);
-    if (ma < 0 || mb < 0) return 2;
-    return ma < mb ? ma : mb;
-}
-
-/* ---------- MV prediction over global grids ---------- */
-static inline void blk_info(PC *c, int bx, int by, int lx, int cur_mb,
-                            int *avail, int *ref, int32_t mvout[2]) {
-    int w4 = c->mb_w * 4, h4 = c->mb_h * 4;
-    mvout[0] = mvout[1] = 0;
-    *avail = 0;
-    *ref = -1;
-    if (bx < 0 || by < 0 || bx >= w4 || by >= h4) return;
-    int mb = (by / 4) * c->mb_w + (bx / 4);
-    if (mb == cur_mb) {
-        if (!c->gwritten[by * w4 + bx]) return;
-    } else if (c->slice_id[mb] != c->slice_idx) {
-        return;
-    }
-    *avail = 1;
-    *ref = c->gref[lx * h4 * w4 + by * w4 + bx];
-    mvout[0] = c->gmv[(lx * h4 * w4 + by * w4 + bx) * 2];
-    mvout[1] = c->gmv[(lx * h4 * w4 + by * w4 + bx) * 2 + 1];
-}
-
-static inline int32_t med3(int32_t a, int32_t b, int32_t cc) {
-    int32_t mx = a > b ? a : b, mn = a < b ? a : b;
-    if (cc > mx) return mx;
-    if (cc < mn) return mn;
-    return cc;
-}
-
-static void pred_mv(PC *c, int gx, int gy, int pw, int ph, int lx,
-                    int ref_idx, int cur_mb, int32_t out[2]) {
-    int aa, ab, ac, ra, rb, rc;
-    int32_t mva[2], mvb[2], mvc[2];
-    blk_info(c, gx - 1, gy, lx, cur_mb, &aa, &ra, mva);
-    blk_info(c, gx, gy - 1, lx, cur_mb, &ab, &rb, mvb);
-    blk_info(c, gx + pw, gy - 1, lx, cur_mb, &ac, &rc, mvc);
-    if (!ac) blk_info(c, gx - 1, gy - 1, lx, cur_mb, &ac, &rc, mvc);
-    if (pw == 4 && ph == 2) {
-        if ((gy & 3) == 0) {
-            if (ab && rb == ref_idx) { out[0] = mvb[0]; out[1] = mvb[1]; return; }
-        } else {
-            if (aa && ra == ref_idx) { out[0] = mva[0]; out[1] = mva[1]; return; }
-        }
-    } else if (pw == 2 && ph == 4) {
-        if ((gx & 3) == 0) {
-            if (aa && ra == ref_idx) { out[0] = mva[0]; out[1] = mva[1]; return; }
-        } else {
-            if (ac && rc == ref_idx) { out[0] = mvc[0]; out[1] = mvc[1]; return; }
-        }
-    }
-    int ma = aa && ra == ref_idx, mb = ab && rb == ref_idx,
-        mc = ac && rc == ref_idx;
-    int nm = ma + mb + mc;
-    if (nm == 1) {
-        if (ma) { out[0] = mva[0]; out[1] = mva[1]; return; }
-        if (mb) { out[0] = mvb[0]; out[1] = mvb[1]; return; }
-        out[0] = mvc[0]; out[1] = mvc[1]; return;
-    }
-    if (!ab && !ac && aa) { out[0] = mva[0]; out[1] = mva[1]; return; }
-    int32_t va0 = aa ? mva[0] : 0, va1 = aa ? mva[1] : 0;
-    int32_t vb0 = ab ? mvb[0] : 0, vb1 = ab ? mvb[1] : 0;
-    int32_t vc0 = ac ? mvc[0] : 0, vc1 = ac ? mvc[1] : 0;
-    out[0] = med3(va0, vb0, vc0);
-    out[1] = med3(va1, vb1, vc1);
-}
-
-static void pred_skip_mv(PC *c, int gx, int gy, int cur_mb, int32_t out[2]) {
-    int aa, ab, ra, rb;
-    int32_t mva[2], mvb[2];
-    blk_info(c, gx - 1, gy, 0, cur_mb, &aa, &ra, mva);
-    blk_info(c, gx, gy - 1, 0, cur_mb, &ab, &rb, mvb);
-    out[0] = out[1] = 0;
-    if (!aa || !ab) return;
-    if ((ra == 0 && mva[0] == 0 && mva[1] == 0) ||
-        (rb == 0 && mvb[0] == 0 && mvb[1] == 0)) return;
-    pred_mv(c, gx, gy, 4, 4, 0, 0, cur_mb, out);
-}
-
-static void set_partition(PC *c, int gx, int gy, int pw, int ph, int lx,
-                          int ref_idx, int32_t mv0, int32_t mv1) {
-    int w4 = c->mb_w * 4, h4 = c->mb_h * 4;
-    for (int y = gy; y < gy + ph; y++)
-        for (int x = gx; x < gx + pw; x++) {
-            c->gmv[(lx * h4 * w4 + y * w4 + x) * 2] = mv0;
-            c->gmv[(lx * h4 * w4 + y * w4 + x) * 2 + 1] = mv1;
-            c->gref[lx * h4 * w4 + y * w4 + x] = ref_idx;
-            c->gwritten[y * w4 + x] = 1;
-            c->grefw[lx * h4 * w4 + y * w4 + x] = 1;
-        }
 }
 
 /* ---------- residual block (§9.2, mirrors decoder/cavlc.py) ---------- */
@@ -389,15 +261,11 @@ static int parse_residual(PC *c, int nc, int max_coeff, int32_t *coeffs,
     return b->err ? -1 : 0;
 }
 
-static inline int32_t wrap16(int64_t x) {
-    return (int32_t)(int16_t)(x & 0xFFFF);
-}
-
 /* ---------- MB residual (mirrors parse_mb_residual_cavlc) ---------- */
 static int mb_residual(PC *c, int mb_idx, int cbp, int is_i16) {
     BR *b = &c->br;
-    int mbx = mb_idx % c->mb_w, mby = mb_idx / c->mb_w;
-    int w4 = c->mb_w * 4, w2 = c->mb_w * 2;
+    int mbx = mb_idx % c->g.mb_w, mby = mb_idx / c->g.mb_w;
+    int w4 = c->g.mb_w * 4, w2 = c->g.mb_w * 2;
     if (is_i16 || cbp) {
         int32_t delta = br_se(b);
         if (b->err) return -1;
@@ -405,7 +273,7 @@ static int mb_residual(PC *c, int mb_idx, int cbp, int is_i16) {
     }
     c->qp[mb_idx] = c->cur_qp;
     int qp = c->cur_qp;
-    int t = c->mb_type[mb_idx];
+    int t = c->g.mb_type[mb_idx];
     int intra = (t == 0 || t == 1 || t == 3);
     int qp_c[2];
     for (int k = 0; k < 2; k++) {
@@ -508,73 +376,20 @@ static int mb_residual(PC *c, int mb_idx, int cbp, int is_i16) {
                     int p = c->zigzag[j + 1];
                     dstc[p] = (int32_t)(((int64_t)scan[j] * dq_c[p] + 8) >> 4);
                 }
-                c->nzc_c[comp * (c->mb_h * 2) * w2 + cy * w2 + cx] = tc;
+                c->nzc_c[comp * (c->g.mb_h * 2) * w2 + cy * w2 + cx] = tc;
             }
         }
     } else {
         for (int comp = 0; comp < 2; comp++)
             for (int dy = 0; dy < 2; dy++)
                 for (int dx = 0; dx < 2; dx++)
-                    c->nzc_c[comp * (c->mb_h * 2) * w2 + (mby * 2 + dy) * w2
+                    c->nzc_c[comp * (c->g.mb_h * 2) * w2 + (mby * 2 + dy) * w2
                              + mbx * 2 + dx] = 0;
     }
     return 0;
 }
 
-/* ---------- per-MB init / finish ---------- */
-static void mb_common_init(PC *c, int mb_idx) {
-    int mbx = mb_idx % c->mb_w, mby = mb_idx / c->mb_w;
-    int w4 = c->mb_w * 4;
-    c->slice_id[mb_idx] = c->slice_idx;
-    c->disable_deblock[mb_idx] = c->ddb_idc;
-    c->alpha_off[mb_idx] = c->a_off;
-    c->beta_off[mb_idx] = c->b_off;
-    for (int y = mby * 4; y < mby * 4 + 4; y++)
-        for (int x = mbx * 4; x < mbx * 4 + 4; x++)
-            c->gwritten[y * w4 + x] = 0;
-}
-
-static void finish_inter_mb(PC *c, int mb_idx) {
-    int mbx = mb_idx % c->mb_w, mby = mb_idx / c->mb_w;
-    int w4 = c->mb_w * 4, h4 = c->mb_h * 4;
-    int gy = mby * 4, gx = mbx * 4;
-    for (int lx = 0; lx < 2; lx++)
-        for (int j = 0; j < 16; j++) {
-            int y = gy + j / 4, x = gx + j % 4;
-            c->mv[((mb_idx * 2 + lx) * 16 + j) * 2] =
-                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2];
-            c->mv[((mb_idx * 2 + lx) * 16 + j) * 2 + 1] =
-                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2 + 1];
-        }
-    for (int q = 0; q < 4; q++) {
-        int qy = gy + (q / 2) * 2, qx = gx + (q % 2) * 2;
-        int r0 = c->gref[0 * h4 * w4 + qy * w4 + qx];
-        int r1 = c->gref[1 * h4 * w4 + qy * w4 + qx];
-        c->refidx[(mb_idx * 2 + 0) * 4 + q] = (int8_t)r0;
-        c->refidx[(mb_idx * 2 + 1) * 4 + q] = (int8_t)r1;
-        c->ref_pic[(mb_idx * 2 + 0) * 4 + q] =
-            (r0 >= 0 && r0 < c->n_l0) ? c->l0_pic_ids[r0] : -1;
-        c->ref_pic[(mb_idx * 2 + 1) * 4 + q] = -1;   /* P: no list 1 */
-        c->pred_mode[mb_idx * 4 + q] =
-            (r0 >= 0 && r1 >= 0) ? 2 : (r1 >= 0 ? 1 : (r0 >= 0 ? 0 : -1));
-    }
-}
-
-static void mark_intra_grids(PC *c, int mb_idx) {
-    int mbx = mb_idx % c->mb_w, mby = mb_idx / c->mb_w;
-    int w4 = c->mb_w * 4, h4 = c->mb_h * 4;
-    for (int lx = 0; lx < 2; lx++)
-        for (int y = mby * 4; y < mby * 4 + 4; y++)
-            for (int x = mbx * 4; x < mbx * 4 + 4; x++) {
-                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2] = 0;
-                c->gmv[(lx * h4 * w4 + y * w4 + x) * 2 + 1] = 0;
-                c->gref[lx * h4 * w4 + y * w4 + x] = -1;
-            }
-    for (int y = mby * 4; y < mby * 4 + 4; y++)
-        for (int x = mbx * 4; x < mbx * 4 + 4; x++)
-            c->gwritten[y * w4 + x] = 1;
-}
-
+/* ---------- ref_idx (te(v) over list 0) ---------- */
 static int read_ref_idx(PC *c) {
     if (c->num_ref_l0 <= 1) return 0;
     int r;
@@ -582,7 +397,7 @@ static int read_ref_idx(PC *c) {
         r = 1 - (int)br_u(&c->br, 1);
     else
         r = (int)br_ue(&c->br);
-    if (!(r >= 0 && r < c->n_l0 && c->l0_pic_ids[r] >= 0))
+    if (!(r >= 0 && r < c->g.n_l0 && c->g.l0_pic_ids[r] >= 0))
         return 0;
     return r;
 }
@@ -590,12 +405,12 @@ static int read_ref_idx(PC *c) {
 /* ---------- intra MB ---------- */
 static int decode_i_mb(PC *c, int mb_idx, int raw) {
     BR *b = &c->br;
-    int mbx = mb_idx % c->mb_w, mby = mb_idx / c->mb_w;
-    int w4 = c->mb_w * 4, w2 = c->mb_w * 2;
-    for (int q = 0; q < 4; q++) c->pred_mode[mb_idx * 4 + q] = -1;
+    int mbx = mb_idx % c->g.mb_w, mby = mb_idx / c->g.mb_w;
+    int w4 = c->g.mb_w * 4, w2 = c->g.mb_w * 2;
+    for (int q = 0; q < 4; q++) c->g.pred_mode[mb_idx * 4 + q] = -1;
 
     if (raw == 25) {   /* IPCM */
-        c->mb_type[mb_idx] = 2;
+        c->g.mb_type[mb_idx] = 2;
         while (b->pos & 7) br_u(b, 1);
         uint8_t *dst = c->ipcm_buf + (size_t)mb_idx * 384;
         for (int i = 0; i < 384; i++) dst[i] = (uint8_t)br_u(b, 8);
@@ -605,12 +420,12 @@ static int decode_i_mb(PC *c, int mb_idx, int raw) {
         for (int y = mby * 4; y < mby * 4 + 4; y++)
             for (int x = mbx * 4; x < mbx * 4 + 4; x++) {
                 c->nzc_l[y * w4 + x] = 16;
-                c->i4_grid[y * w4 + x] = 2;
+                c->g.i4_grid[y * w4 + x] = 2;
             }
         for (int comp = 0; comp < 2; comp++)
             for (int dy = 0; dy < 2; dy++)
                 for (int dx = 0; dx < 2; dx++)
-                    c->nzc_c[comp * (c->mb_h * 2) * w2 + (mby * 2 + dy) * w2
+                    c->nzc_c[comp * (c->g.mb_h * 2) * w2 + (mby * 2 + dy) * w2
                              + mbx * 2 + dx] = 16;
         return 0;
     }
@@ -618,19 +433,19 @@ static int decode_i_mb(PC *c, int mb_idx, int raw) {
     if (raw > 25) { b->err = 2; return -1; }
     int cbp;
     if (raw == 0) {    /* I4x4 (transform8 rejected by the dispatcher) */
-        c->mb_type[mb_idx] = 0;
+        c->g.mb_type[mb_idx] = 0;
         for (int k = 0; k < 16; k++) {
             int raster = ZS2R[k];
             int bx = raster % 4, by = raster / 4;
             int gx = mbx * 4 + bx, gy = mby * 4 + by;
-            int pred = pred_i4_mode(c, gx, gy);
+            int pred = pred_i4_mode(&c->g, gx, gy);
             int mode;
             if (br_u(b, 1)) mode = pred;
             else {
                 int rem = (int)br_u(b, 3);
                 mode = rem < pred ? rem : rem + 1;
             }
-            c->i4_grid[gy * w4 + gx] = mode;
+            c->g.i4_grid[gy * w4 + gx] = mode;
             c->i4_modes[mb_idx * 16 + raster] = mode;
         }
         c->chroma_mode[mb_idx] = (int)br_ue(b);
@@ -638,67 +453,68 @@ static int decode_i_mb(PC *c, int mb_idx, int raw) {
         if (b->err || code >= 48) { b->err = 2; return -1; }
         cbp = c->cbp_intra[code];
     } else {           /* I16x16 */
-        c->mb_type[mb_idx] = 1;
+        c->g.mb_type[mb_idx] = 1;
         int mt = raw - 1;
         c->i16_mode[mb_idx] = mt & 3;
         cbp = c->cbp_i16[mt >> 2];
         for (int y = mby * 4; y < mby * 4 + 4; y++)
             for (int x = mbx * 4; x < mbx * 4 + 4; x++)
-                c->i4_grid[y * w4 + x] = 2;
+                c->g.i4_grid[y * w4 + x] = 2;
         c->chroma_mode[mb_idx] = (int)br_ue(b);
     }
     if (b->err) return -1;
     c->cbp[mb_idx] = cbp;
-    return mb_residual(c, mb_idx, cbp, c->mb_type[mb_idx] == 1);
+    return mb_residual(c, mb_idx, cbp, c->g.mb_type[mb_idx] == 1);
 }
 
 /* ---------- P MBs ---------- */
 static void decode_p_skip(PC *c, int mb_idx) {
-    mb_common_init(c, mb_idx);
-    int mbx = mb_idx % c->mb_w, mby = mb_idx / c->mb_w;
+    mb_common_init(&c->g, mb_idx);
+    int mbx = mb_idx % c->g.mb_w, mby = mb_idx / c->g.mb_w;
     int gx = mbx * 4, gy = mby * 4;
-    c->mb_type[mb_idx] = T_PSKIP;
+    c->g.mb_type[mb_idx] = T_PSKIP;
     int32_t mv[2];
-    pred_skip_mv(c, gx, gy, mb_idx, mv);
-    set_partition(c, gx, gy, 4, 4, 0, 0, mv[0], mv[1]);
-    set_partition(c, gx, gy, 4, 4, 1, -1, 0, 0);
+    pred_skip_mv(&c->g, gx, gy, mb_idx, mv);
+    set_partition(&c->g, gx, gy, 4, 4, 0, 0, mv[0], mv[1]);
+    set_partition(&c->g, gx, gy, 4, 4, 1, -1, 0, 0);
     c->cbp[mb_idx] = 0;
     c->qp[mb_idx] = c->cur_qp;
-    finish_inter_mb(c, mb_idx);
-    int w4 = c->mb_w * 4, w2 = c->mb_w * 2;
+    finish_inter_mb(&c->g, mb_idx);
+    int w4 = c->g.mb_w * 4, w2 = c->g.mb_w * 2;
     for (int y = gy; y < gy + 4; y++)
         for (int x = gx; x < gx + 4; x++)
             c->nzc_l[y * w4 + x] = 0;
     for (int comp = 0; comp < 2; comp++)
         for (int dy = 0; dy < 2; dy++)
             for (int dx = 0; dx < 2; dx++)
-                c->nzc_c[comp * (c->mb_h * 2) * w2 + (mby * 2 + dy) * w2
+                c->nzc_c[comp * (c->g.mb_h * 2) * w2 + (mby * 2 + dy) * w2
                          + mbx * 2 + dx] = 0;
 }
 
 static int decode_p_mb(PC *c, int mb_idx, int raw) {
     BR *b = &c->br;
     if (raw >= 5) {
-        mb_common_init(c, mb_idx);
+        mb_common_init(&c->g, mb_idx);
         if (decode_i_mb(c, mb_idx, raw - 5)) return -1;
-        mark_intra_grids(c, mb_idx);
+        mark_intra_grids(&c->g, mb_idx);
         return 0;
     }
-    mb_common_init(c, mb_idx);
-    for (int q = 0; q < 4; q++) c->pred_mode[mb_idx * 4 + q] = 0;
-    int mbx = mb_idx % c->mb_w, mby = mb_idx / c->mb_w;
+    mb_common_init(&c->g, mb_idx);
+    for (int q = 0; q < 4; q++) c->g.pred_mode[mb_idx * 4 + q] = 0;
+    int mbx = mb_idx % c->g.mb_w, mby = mb_idx / c->g.mb_w;
     int gx = mbx * 4, gy = mby * 4;
     int sub_types[4] = {0, 0, 0, 0};
 
     if (raw == 0) {
-        c->mb_type[mb_idx] = T_P16;
+        c->g.mb_type[mb_idx] = T_P16;
         int ref = read_ref_idx(c);
         int32_t mvd0 = br_se(b), mvd1 = br_se(b);
         int32_t mvp[2];
-        pred_mv(c, gx, gy, 4, 4, 0, ref, mb_idx, mvp);
-        set_partition(c, gx, gy, 4, 4, 0, ref, mvp[0] + mvd0, mvp[1] + mvd1);
+        pred_mv(&c->g, gx, gy, 4, 4, 0, ref, mb_idx, mvp);
+        set_partition(&c->g, gx, gy, 4, 4, 0, ref, mvp[0] + mvd0,
+                      mvp[1] + mvd1);
     } else if (raw == 1 || raw == 2) {
-        c->mb_type[mb_idx] = raw == 1 ? T_P168 : T_P816;
+        c->g.mb_type[mb_idx] = raw == 1 ? T_P168 : T_P816;
         int refs[2];
         refs[0] = read_ref_idx(c);
         refs[1] = read_ref_idx(c);
@@ -708,12 +524,12 @@ static int decode_p_mb(PC *c, int mb_idx, int raw) {
             else { px += part * 2; pw = 2; ph = 4; }
             int32_t mvd0 = br_se(b), mvd1 = br_se(b);
             int32_t mvp[2];
-            pred_mv(c, px, py, pw, ph, 0, refs[part], mb_idx, mvp);
-            set_partition(c, px, py, pw, ph, 0, refs[part],
+            pred_mv(&c->g, px, py, pw, ph, 0, refs[part], mb_idx, mvp);
+            set_partition(&c->g, px, py, pw, ph, 0, refs[part],
                           mvp[0] + mvd0, mvp[1] + mvd1);
         }
     } else if (raw == 3 || raw == 4) {
-        c->mb_type[mb_idx] = T_P88;
+        c->g.mb_type[mb_idx] = T_P88;
         for (int q = 0; q < 4; q++) {
             sub_types[q] = (int)br_ue(b);
             if (b->err || sub_types[q] > 3) { b->err = 2; return -1; }
@@ -735,8 +551,8 @@ static int decode_p_mb(PC *c, int mb_idx, int raw) {
                 else if (st == 3) { px += part % 2; py += part / 2; }
                 int32_t mvd0 = br_se(b), mvd1 = br_se(b);
                 int32_t mvp[2];
-                pred_mv(c, px, py, pw, ph, 0, refs[q], mb_idx, mvp);
-                set_partition(c, px, py, pw, ph, 0, refs[q],
+                pred_mv(&c->g, px, py, pw, ph, 0, refs[q], mb_idx, mvp);
+                set_partition(&c->g, px, py, pw, ph, 0, refs[q],
                               mvp[0] + mvd0, mvp[1] + mvd1);
             }
         }
@@ -744,8 +560,8 @@ static int decode_p_mb(PC *c, int mb_idx, int raw) {
         b->err = 2;
         return -1;
     }
-    set_partition(c, gx, gy, 4, 4, 1, -1, 0, 0);
-    finish_inter_mb(c, mb_idx);
+    set_partition(&c->g, gx, gy, 4, 4, 1, -1, 0, 0);
+    finish_inter_mb(&c->g, mb_idx);
     if (b->err) return -1;
 
     uint32_t code = br_ue(b);
@@ -756,22 +572,21 @@ static int decode_p_mb(PC *c, int mb_idx, int raw) {
         if (mb_residual(c, mb_idx, cbp, 0)) return -1;
     } else {
         c->qp[mb_idx] = c->cur_qp;
-        int w4 = c->mb_w * 4, w2 = c->mb_w * 2;
+        int w4 = c->g.mb_w * 4, w2 = c->g.mb_w * 2;
         for (int y = gy; y < gy + 4; y++)
             for (int x = gx; x < gx + 4; x++)
                 c->nzc_l[y * w4 + x] = 0;
         for (int comp = 0; comp < 2; comp++)
             for (int dy = 0; dy < 2; dy++)
                 for (int dx = 0; dx < 2; dx++)
-                    c->nzc_c[comp * (c->mb_h * 2) * w2 + (mby * 2 + dy) * w2
+                    c->nzc_c[comp * (c->g.mb_h * 2) * w2 + (mby * 2 + dy) * w2
                              + mbx * 2 + dx] = 0;
     }
     return 0;
 }
 
 /* ---------- entry ---------- */
-/* ptrs / params layouts documented in native.py
- * (parse_cavlc_slice_native).
+/* ptrs / params layouts in decoder/cbind.py (parse_cavlc_slice_native).
  * Returns 0 on success; out[0]=end_mb, out[1]=end_bit, out[2]=err
  * (0 ok, 1 EOF, 2 invalid). */
 int parse_cavlc_slice(const void **ptrs, const int32_t *params,
@@ -790,9 +605,9 @@ int parse_cavlc_slice(const void **ptrs, const int32_t *params,
     c.dq4 = (const int64_t *)ptrs[i++];
     c.chroma_qp = (const int32_t *)ptrs[i++];
     c.zigzag = (const int32_t *)ptrs[i++];
-    c.mb_type = (int32_t *)ptrs[i++];
-    c.slice_id = (int32_t *)ptrs[i++];
-    c.i4_grid = (int32_t *)ptrs[i++];
+    c.g.mb_type = (int32_t *)ptrs[i++];
+    c.g.slice_id = (int32_t *)ptrs[i++];
+    c.g.i4_grid = (int32_t *)ptrs[i++];
     c.i16_mode = (int32_t *)ptrs[i++];
     c.i4_modes = (int32_t *)ptrs[i++];
     c.chroma_mode = (int32_t *)ptrs[i++];
@@ -802,18 +617,18 @@ int parse_cavlc_slice(const void **ptrs, const int32_t *params,
     c.nzc_c = (int32_t *)ptrs[i++];
     c.coeffs_l = (int32_t *)ptrs[i++];
     c.coeffs_c = (int32_t *)ptrs[i++];
-    c.mv = (int32_t *)ptrs[i++];
-    c.refidx = (int8_t *)ptrs[i++];
-    c.ref_pic = (int32_t *)ptrs[i++];
-    c.pred_mode = (int8_t *)ptrs[i++];
-    c.gmv = (int32_t *)ptrs[i++];
-    c.gref = (int32_t *)ptrs[i++];
-    c.gwritten = (uint8_t *)ptrs[i++];
-    c.grefw = (uint8_t *)ptrs[i++];
-    c.l0_pic_ids = (const int32_t *)ptrs[i++];
-    c.disable_deblock = (int32_t *)ptrs[i++];
-    c.alpha_off = (int32_t *)ptrs[i++];
-    c.beta_off = (int32_t *)ptrs[i++];
+    c.g.mv = (int32_t *)ptrs[i++];
+    c.g.refidx = (int8_t *)ptrs[i++];
+    c.g.ref_pic = (int32_t *)ptrs[i++];
+    c.g.pred_mode = (int8_t *)ptrs[i++];
+    c.g.gmv = (int32_t *)ptrs[i++];
+    c.g.gref = (int32_t *)ptrs[i++];
+    c.g.gwritten = (uint8_t *)ptrs[i++];
+    c.g.grefw = (uint8_t *)ptrs[i++];
+    c.g.l0_pic_ids = (const int32_t *)ptrs[i++];
+    c.g.disable_deblock = (int32_t *)ptrs[i++];
+    c.g.alpha_off = (int32_t *)ptrs[i++];
+    c.g.beta_off = (int32_t *)ptrs[i++];
     c.mb_correct = (uint8_t *)ptrs[i++];
     c.ipcm_buf = (uint8_t *)ptrs[i++];
     c.ipcm_flag = (uint8_t *)ptrs[i++];
@@ -824,18 +639,20 @@ int parse_cavlc_slice(const void **ptrs, const int32_t *params,
     long start_bit = params[i++];
     c.slice_type = params[i++];
     c.first_mb = params[i++];
-    c.mb_w = params[i++];
-    c.mb_h = params[i++];
-    c.slice_idx = params[i++];
+    c.g.mb_w = params[i++];
+    c.g.mb_h = params[i++];
+    c.g.slice_idx = params[i++];
     c.cur_qp = params[i++];
     c.num_ref_l0 = params[i++];
-    c.constrained = params[i++];
-    c.ddb_idc = params[i++];
-    c.a_off = params[i++];
-    c.b_off = params[i++];
+    c.g.constrained = params[i++];
+    c.g.ddb_idc = params[i++];
+    c.g.a_off = params[i++];
+    c.g.b_off = params[i++];
     c.coff0 = params[i++];
     c.coff1 = params[i++];
-    c.n_l0 = params[i++];
+    c.g.n_l0 = params[i++];
+    c.g.w4 = c.g.mb_w * 4;
+    c.g.h4 = c.g.mb_h * 4;          /* list 1 stays empty: n_l1 = 0 */
 
     c.br.buf = rbsp;
     c.br.nbits = nbits;
@@ -858,14 +675,14 @@ int parse_cavlc_slice(const void **ptrs, const int32_t *params,
     }
 
     int mb_idx = c.first_mb;
-    long n_mb = (long)c.mb_w * c.mb_h;
+    long n_mb = (long)c.g.mb_w * c.g.mb_h;
     int rc = 0;
 
     if (c.slice_type == I_SLICE_T) {
         for (;;) {
             uint32_t raw = br_ue(&c.br);
             if (c.br.err) { rc = -1; break; }
-            mb_common_init(&c, mb_idx);
+            mb_common_init(&c.g, mb_idx);
             if (decode_i_mb(&c, mb_idx, (int)raw)) { rc = -1; break; }
             c.mb_correct[mb_idx] = 1;
             mb_idx++;

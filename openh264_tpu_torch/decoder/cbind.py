@@ -1,150 +1,46 @@
-"""Host C of the host encoder and the decoder, bound with ctypes: the
-I-frame intra mode decision and encode (`enc_intra_frame_native`), the
-token bit packer (`bitpack`), the decoder's CAVLC slice parser
-(`parse_cavlc_slice_native`), its CABAC slice parser of I, P and B
-slices (`parse_cabac_slice_native`), the CABAC residual-block bins of
-its per-MB Python parser (`cabac_residual_lib`) and its intra
-reconstruction (`recon_intra_mbs_native`).
+"""Host C of the decoder, bound with ctypes: the CAVLC slice parser of I
+and P slices (parse_cavlc_slice_native, csrc/parse_cavlc.c), the CABAC
+slice parser of I, P and B slices (parse_cabac_slice_native,
+csrc/parse_cabac.c), the CABAC residual-block bins of the per-MB Python
+CABAC parser (cabac_residual_lib, csrc/cabac_residual.c) and the intra
+reconstruction (recon_intra_mbs_native, csrc/host_native.c).
+_build.SIGNATURES declares their C signatures; this module packs
+FrameSymbols into their pointer and parameter arrays.
+
+Which slices the two parsers take is slice_dec.c_parses, the decoder's
+one routing rule (decoder.py's parse_slice_data): each parser refuses
+any other slice with NotImplementedError, which the decoder never
+conceals.
 
 Port of the functions of openh264_tpu/native/__init__.py that these
 paths run, and the CABAC slice parser, which the JAX package does not
-have (its CABAC syntax elements run per bin in Python); the C is
-csrc/host_native.c, csrc/parse_cavlc.c, csrc/parse_cabac.c and
-csrc/cabac_residual.c, built with the host compiler by _build.py at
-first use. Unlike the JAX package, which falls back to numpy, to
-I16-only intra, to its Python parser or to Python CABAC bins when its C
-does not build, this module has no fallback: a failed build raises.
+have (its CABAC syntax elements run per bin in Python). Unlike the JAX
+package, which falls back to its Python parser or to Python CABAC bins
+when its C does not build, this module has no fallback: a failed build
+raises.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 
-from . import _build
-from .tables import (CHROMA_QP_TABLE, DEQUANT_4x4, QUANT_MF_4x4,
-                     ZIGZAG_4x4, ZIGZAG_8x8)
-from .utils import trace
+from .. import _build
+from ..tables import CHROMA_QP_TABLE, ZIGZAG_4x4, ZIGZAG_8x8
+from ..tables.cavlc import (CBP_I16x16, CBP_INTER, CBP_INTRA,
+                            COEFF_TOKEN_LUTS, RUN_BEFORE_LUTS,
+                            TOTAL_ZEROS_CDC_LUTS, TOTAL_ZEROS_LUTS)
+from ..utils import trace
+from .cabac import CTX_INIT_MN, RANGE_LPS, STATE_TRANS
+from .mvpred import ensure_motion_grids
+from .slice_dec import c_parses
+from .slicehdr import B_SLICE, I_SLICE, P_SLICE
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("host_native")
-    lib.bitpack.restype = ctypes.c_size_t
-    lib.bitpack.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_size_t, ctypes.c_void_p,
-                            ctypes.c_size_t]
-    lib.enc_intra_frame.restype = None
-    lib.enc_intra_frame.argtypes = [ctypes.c_void_p] * 2
-    lib.recon_intra_mbs.restype = None
-    lib.recon_intra_mbs.argtypes = [ctypes.c_void_p] * 2
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _parse_lib() -> ctypes.CDLL:
-    lib = _build.load("parse_cavlc")
-    lib.parse_cavlc_slice.restype = ctypes.c_int
-    lib.parse_cavlc_slice.argtypes = [ctypes.c_void_p] * 3
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _cabac_parse_lib() -> ctypes.CDLL:
-    lib = _build.load("parse_cabac")
-    lib.parse_cabac_slice.restype = ctypes.c_longlong
-    lib.parse_cabac_slice.argtypes = [ctypes.c_void_p] * 3
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def cabac_residual_lib() -> ctypes.CDLL:
-    """csrc/cabac_residual.c: `cabac_residual(data, nbits, st, cstate,
-    cmps, range_lps, state_trans, params, sig_out)` decodes one residual
-    block's bins over the Python engine's state (st: pos, range, offset)
-    and context arrays, and returns its coefficient count (-1 on a
-    runaway exp-Golomb code)."""
-    lib = _build.load("cabac_residual")
-    lib.cabac_residual.restype = ctypes.c_int
-    lib.cabac_residual.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + \
-        [ctypes.c_void_p] * 7
-    return lib
-
-
-def bitpack(vals: np.ndarray, lens: np.ndarray, out: np.ndarray,
-            start_bit: int) -> int:
-    """Append MSB-first tokens into `out` (zeroed uint8 from start_bit
-    on); returns the new bit position."""
-    v = np.ascontiguousarray(vals.reshape(-1), np.uint32)
-    ln = np.ascontiguousarray(lens.reshape(-1), np.uint8)
-    if out.dtype != np.uint8 or out.ndim != 1 or \
-            not out.flags["C_CONTIGUOUS"]:
-        raise ValueError("bitpack: out must be a contiguous uint8 vector")
-    # a token may be longer than its 32-bit value (leading zeros), but
-    # the C accumulator holds at most 7 pending bits plus 56
-    if len(v) != len(ln) or (ln > 56).any():
-        raise ValueError("bitpack: one length of at most 56 per value")
-    if start_bit + int(ln.sum(dtype=np.int64)) > 8 * out.size:
-        raise ValueError("bitpack: the tokens overrun `out`")
-    return _lib().bitpack(v.ctypes.data, ln.ctypes.data, len(v),
-                          out.ctypes.data, start_bit)
-
-
-def enc_intra_frame_native(y, u, v, qp: int, qp_c: int, lam: int,
-                           enable_i4: bool = True) -> dict:
-    """I-frame MD + encode in C (I16x16 vs I4x4 per MB). y/u/v: host
-    uint8 planes, MB aligned. Returns the encoder's symbol dict, numpy,
-    with the recon planes."""
-    y = np.ascontiguousarray(y, np.uint8)
-    u = np.ascontiguousarray(u, np.uint8)
-    v = np.ascontiguousarray(v, np.uint8)
-    mb_h, mb_w = y.shape[0] // 16, y.shape[1] // 16
-    if y.shape != (16 * mb_h, 16 * mb_w) or mb_h == 0 or mb_w == 0 or \
-            u.shape != (8 * mb_h, 8 * mb_w) or v.shape != u.shape:
-        raise ValueError("enc_intra_frame_native: y must be MB aligned and "
-                         "u, v half its size")
-    if not (0 <= qp <= 51 and 0 <= qp_c <= 51):
-        raise ValueError("enc_intra_frame_native: QP out of 0..51")
-    n = mb_w * mb_h
-    qmf = np.ascontiguousarray(np.asarray(QUANT_MF_4x4).reshape(52, 16),
-                               np.int32)
-    dqt = np.ascontiguousarray(np.asarray(DEQUANT_4x4).reshape(52, 16),
-                               np.int32)
-    kind = np.zeros(n, np.int32)
-    i16m = np.zeros(n, np.int32)
-    i4m = np.zeros((n, 16), np.int32)
-    i4prev = np.zeros((n, 16), np.int32)
-    i4rem = np.zeros((n, 16), np.int32)
-    cmode = np.zeros(n, np.int32)
-    ldc = np.zeros((n, 16), np.int32)
-    lac = np.zeros((n, 16, 16), np.int32)
-    cdc = np.zeros((n, 2, 4), np.int32)
-    cac = np.zeros((n, 2, 4, 16), np.int32)
-    ry, ru, rv = y.copy(), u.copy(), v.copy()
-    arrs = [y, u, v, qmf, dqt, kind, i16m, i4m, i4prev, i4rem, cmode,
-            ldc, lac, cdc, cac, ry, ru, rv]
-    ptrs = np.array([a.ctypes.data for a in arrs], np.uint64)
-    params = np.array([mb_w, mb_h, qp, qp_c, lam, int(enable_i4)],
-                      np.int32)
-    _lib().enc_intra_frame(ptrs.ctypes.data, params.ctypes.data)
-    return {"kind": kind, "i16_mode": i16m, "i4_modes": i4m,
-            "i4_prev": i4prev, "i4_rem": i4rem, "chroma_mode": cmode,
-            "luma_dc": ldc.reshape(n, 4, 4), "luma_ac": lac,
-            "chroma_dc": cdc, "chroma_ac": cac,
-            "recon_y": ry, "recon_u": ru, "recon_v": rv}
-
-
-# ---------------------------------------------------------------------------
-# The decoder: CAVLC slice parser and intra recon
-# ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=None)
 def _cavlc_tables() -> dict:
-    """The parser's VLC LUTs and tables as contiguous arrays."""
-    from .tables.cavlc import (CBP_I16x16, CBP_INTER, CBP_INTRA,
-                               COEFF_TOKEN_LUTS, RUN_BEFORE_LUTS,
-                               TOTAL_ZEROS_CDC_LUTS, TOTAL_ZEROS_LUTS)
+    """The CAVLC parser's VLC LUTs and tables as contiguous arrays."""
 
     def stack(luts, n, size):
         return np.ascontiguousarray(np.stack(
@@ -164,21 +60,17 @@ def _cavlc_tables() -> dict:
 
 
 def parse_cavlc_slice_native(br, ctx) -> int:
-    """Parses one I or P CAVLC slice's data (no 8x8 transform, no FMO:
-    the caller routes those elsewhere or refuses them) from br's bit
-    position into ctx.fs, and returns the index one past its last MB.
-    Raises EOFError on a bitstream overrun and ValueError on an invalid
-    code, with br.pos and the MBs parsed so far left as the C left them
-    (the decoder conceals the rest). A slice outside that scope is a
-    caller's fault, NotImplementedError, which the decoder never
-    conceals."""
-    from .decoder.mvpred import ensure_motion_grids
-    from .decoder.slicehdr import I_SLICE, P_SLICE
+    """Parses one CAVLC slice that c_parses gives the C (I or P, no 8x8
+    transform, no FMO) from br's bit position into ctx.fs, and returns
+    the index one past its last MB. Raises EOFError on a bitstream
+    overrun and ValueError on an invalid code, with br.pos and the MBs
+    parsed so far left as the C left them (the decoder conceals the
+    rest). Any other slice is a caller's fault, NotImplementedError,
+    which the decoder never conceals."""
     sh, fs = ctx.sh, ctx.fs
-    if sh.slice_type not in (I_SLICE, P_SLICE) or \
-            sh.pps.transform_8x8_mode or sh.pps.num_slice_groups > 1:
-        raise NotImplementedError("parse_cavlc_slice_native: I/P slices "
-                                  "without the 8x8 transform or FMO only")
+    if sh.pps.entropy_coding_mode or not c_parses(sh):
+        raise NotImplementedError("parse_cavlc_slice_native: the CAVLC "
+                                  "slices of slice_dec.c_parses only")
     ensure_motion_grids(fs)
     t = _cavlc_tables()
     n_mb = fs.n_mb
@@ -212,8 +104,8 @@ def parse_cavlc_slice_native(br, ctx) -> int:
         sh.slice_beta_offset, sh.pps.chroma_qp_index_offset,
         sh.pps.second_chroma_qp_index_offset, len(l0_ids)], np.int32)
     out = np.zeros(4, np.int32)
-    _parse_lib().parse_cavlc_slice(ptrs.ctypes.data, params.ctypes.data,
-                                   out.ctypes.data)
+    _build.bind("parse_cavlc").parse_cavlc_slice(
+        ptrs.ctypes.data, params.ctypes.data, out.ctypes.data)
     br.pos = int(out[1])
     if out[2] == 1:
         raise EOFError("bitstream overrun (native CAVLC parse)")
@@ -232,8 +124,6 @@ def parse_cavlc_slice_native(br, ctx) -> int:
 @functools.lru_cache(maxsize=None)
 def _cabac_tables() -> dict:
     """The CABAC parser's tables as contiguous arrays."""
-    from .decoder.cabac import CTX_INIT_MN, RANGE_LPS, STATE_TRANS
-    from .tables.cavlc import CBP_I16x16
     return {
         "init_mn": np.ascontiguousarray(CTX_INIT_MN, np.int32),
         "range_lps": np.ascontiguousarray(RANGE_LPS, np.int32),
@@ -258,11 +148,11 @@ _CABAC_ERRORS = {2: (ValueError, "invalid CABAC bitstream (native parse)"),
 
 
 def parse_cabac_slice_native(rbsp: bytes, bitpos: int, ctx) -> tuple:
-    """Parses one CABAC I, P or B slice's data (with or without the 8x8
-    transform; no FMO: decoder/slice_dec_cabac.py routes FMO slices to
-    its Python parser) from bit `bitpos` of its RBSP (the end of its
-    header) into ctx.fs, as slice_dec_cabac.decode_slice_mbs_cabac does,
-    array for array, B direct prediction included (ctx.direct's
+    """Parses one CABAC slice that c_parses gives the C (I, P or B, with
+    or without the 8x8 transform, no FMO) from bit `bitpos` of its RBSP
+    (the end of its header) into ctx.fs, as
+    slice_dec_cabac.decode_slice_mbs_cabac does, array for array, B
+    direct prediction included (ctx.direct's
     colocated picture and DistScaleFactors go in as arrays, once per
     slice). Returns (one past the last MB, the engine's end bit). Raises
     what the Python parser raises: ValueError on a runaway code or
@@ -273,15 +163,13 @@ def parse_cabac_slice_native(rbsp: bytes, bitpos: int, ctx) -> tuple:
     AttributeError on temporal direct without a colocated picture, with
     the MBs parsed so far marked in fs.mb_correct and every array as the
     Python parser leaves it. Counts cabac_c_mbs and cabac_bins on the
-    open span while the recorder is on."""
-    from .decoder.slice_dec_cabac import ensure_cabac_state
-    from .decoder.slicehdr import B_SLICE, I_SLICE, P_SLICE
+    open span while the recorder is on. Any other slice is a caller's
+    fault, NotImplementedError."""
     sh, fs = ctx.sh, ctx.fs
-    if sh.slice_type not in (I_SLICE, P_SLICE, B_SLICE) or \
-            sh.pps.num_slice_groups > 1:
-        raise NotImplementedError("parse_cabac_slice_native: I, P and B "
-                                  "slices without FMO only")
-    ensure_cabac_state(fs)
+    if not sh.pps.entropy_coding_mode or not c_parses(sh):
+        raise NotImplementedError("parse_cabac_slice_native: the CABAC "
+                                  "slices of slice_dec.c_parses only")
+    fs.ensure_cabac_state()
     is_i = sh.slice_type == I_SLICE
     is_b = sh.slice_type == B_SLICE
     if not is_i and not 0 <= sh.cabac_init_idc <= 2:
@@ -336,8 +224,8 @@ def parse_cabac_slice_native(rbsp: bytes, bitpos: int, ctx) -> tuple:
         sh.num_ref_idx_l1_active if is_b else 0, len(ctx.ref_list1),
         *col_params, int(bool(fs.openh264_compat))], np.int64)
     out = np.zeros(7, np.int64)
-    _cabac_parse_lib().parse_cabac_slice(ptrs.ctypes.data, params.ctypes.data,
-                                         out.ctypes.data)
+    _build.bind("parse_cabac").parse_cabac_slice(
+        ptrs.ctypes.data, params.ctypes.data, out.ctypes.data)
     end_mb, end_pos, err, bins, n_done, residual, used8 = (int(v) for v in out)
     # the Python parser sets the deblock's chroma offsets at the first MB
     # that reaches its residual, allocates the 8x8 coefficients at the
@@ -429,4 +317,14 @@ def recon_intra_mbs_native(y, u, v, fs, intra_list, constrained: bool):
     ptrs = np.array([a.ctypes.data for a in arrs], np.uint64)
     params = np.array([fs.mb_w, fs.mb_h, len(mb_list), int(constrained)],
                       np.int32)
-    _lib().recon_intra_mbs(ptrs.ctypes.data, params.ctypes.data)
+    _build.bind("host_native").recon_intra_mbs(ptrs.ctypes.data,
+                                               params.ctypes.data)
+
+
+def cabac_residual_lib():
+    """csrc/cabac_residual.c: `cabac_residual(data, nbits, st, cstate,
+    cmps, range_lps, state_trans, params, sig_out)` decodes one residual
+    block's bins over the Python engine's state (st: pos, range, offset)
+    and context arrays, and returns its coefficient count (-1 on a
+    runaway exp-Golomb code)."""
+    return _build.bind("cabac_residual")

@@ -4,16 +4,18 @@ Port of openh264_tpu/decoder/decoder.py, which mirrors the reference's
 decode entry flow (welsDecoderExt.cpp DecodeFrameNoDelay → WelsDecodeBs
 → ConstructAccessUnit, SURVEY.md §3.3): Annex-B in, YUV420 frames out.
 
-Per picture: the slices are parsed on the host: CABAC slices without
+Per picture: the slices are parsed on the host (parse_slice_data),
+each by the one routing rule slice_dec.c_parses: CABAC slices without
 FMO (I, P and B, with the 8x8 transform and B direct motion) whole in
 host C (csrc/parse_cabac.c), CAVLC I/P slices without FMO or the 8x8
-transform whole in host C (csrc/parse_cavlc.c); CAVLC B slices, the
-CAVLC 8x8 transform and FMO by the per-MB Python parsers (slice_dec.py;
-slice_dec_cabac.py, per bin with their residual bins in C), whose B
-direct motion is derived on the host (direct.py); inter MBs are
-predicted (L0, L1, bi, weighted) and get their 4x4 or 8x8 residual on
-the decoder's device and intra MBs run in host C, or in host Python in
-a picture with I8x8 MBs (recon_batch.py); the frame is deblocked by
+transform whole in host C (csrc/parse_cavlc.c), both bound in cbind.py;
+CAVLC B slices, the CAVLC 8x8 transform and FMO by the per-MB Python
+parsers (slice_dec.py; slice_dec_cabac.py, per bin with their residual
+bins in C), whose B direct motion is derived on the host (direct.py);
+inter MBs are predicted (L0, L1, bi, weighted) and get their 4x4 or 8x8
+residual on the decoder's device and intra MBs run in host C, or, under
+openh264_compat only, in host Python in a picture with I8x8 MBs
+(recon_batch.py); the frame is deblocked by
 the port's Hopper kernel on CUDA, or its plain version on the CPU
 (encoder/deblock_host.py); the planes come to the host once, for
 output and for error concealment, which fills the MBs of broken slices
@@ -52,9 +54,11 @@ from .fmo import build_mb_to_slice_group, next_mb_lut
 from .framedata import (FrameSymbols, MB_BDIRECT, MB_BSKIP, MB_I4x4,
                         MB_I8x8, MB_I16x16, MB_IPCM, MB_PSKIP)
 from .params import parse_pps, parse_sps
+from . import cbind
 from .recon_batch import recon_frame_batch
-from .slice_dec import SliceDecodeContext, decode_slice_data_cavlc
-from .slice_dec_cabac import decode_slice_data_cabac
+from .slice_dec import (SliceDecodeContext, c_parses, check_scope,
+                        decode_slice_mbs_cavlc)
+from .slice_dec_cabac import decode_slice_mbs_cabac
 from .slicehdr import parse_slice_header, P_SLICE, B_SLICE
 from .wpred import WP_B_IMPLICIT, WP_NONE, build_slice_wp, implicit_weights
 
@@ -66,6 +70,24 @@ STAGE_SPANS = {"parse": ("decoder.prepare", "decoder.parse"),
                "deblock": ("decoder.deblock",),
                "output": ("decoder.output",),
                "conceal": ("decoder.conceal",)}
+
+
+def parse_slice_data(br: BitReader, ctx: SliceDecodeContext) -> int:
+    """Parses the MBs of slice ctx.sh, from the end of its header (br's
+    position) into ctx.fs; returns one past its last MB. The one routing
+    rule, slice_dec.c_parses, sends the slice whole to the host C
+    (cbind) or to the per-MB Python parser of its entropy mode. SP and
+    SI slices raise NotImplementedError (check_scope)."""
+    sh = ctx.sh
+    check_scope(sh)
+    c = c_parses(sh)
+    if sh.pps.entropy_coding_mode:
+        parse = cbind.parse_cabac_slice_native if c else \
+            decode_slice_mbs_cabac
+        return parse(br.data, sh.header_bits, ctx)[0]
+    parse = cbind.parse_cavlc_slice_native if c else decode_slice_mbs_cavlc
+    return parse(br, ctx)
+
 
 # Picture fields carried by export_state (the planes travel as numpy)
 _PIC_INTS = ("pic_id", "frame_num", "poc", "is_ref", "is_long_term",
@@ -366,7 +388,7 @@ class H264Decoder:
             with trace.span("decoder.parse", clock=timed,
                             bytes=len(nal.rbsp),
                             slice_type=sh.slice_type) as sp:
-                last_l0 = self._parse_slice(fs, si, nal, sh, br, poc,
+                last_l0 = self._parse_slice(fs, si, sh, br, poc,
                                             ref_pics, fmo_next, last_l0)
                 if trace.enabled():
                     sp.set(mbs=int(np.count_nonzero(fs.slice_id == si)))
@@ -420,7 +442,7 @@ class H264Decoder:
                             is_idr=sh0.is_idr,
                             cvs=max(self._cvs_counter, 0))
 
-    def _parse_slice(self, fs, si, nal, sh, br, poc, ref_pics, fmo_next,
+    def _parse_slice(self, fs, si, sh, br, poc, ref_pics, fmo_next,
                      last_l0):
         """Builds slice si's reference lists and weights and parses its
         MBs into fs (a parse error is concealed unless ec_mode is
@@ -446,10 +468,7 @@ class H264Decoder:
         ctx = SliceDecodeContext(fs, sh, si, ref_list0=l0, ref_list1=l1,
                                  poc=poc, fmo_next=fmo_next)
         try:
-            if sh.pps.entropy_coding_mode:
-                decode_slice_data_cabac(nal.rbsp, sh.header_bits, ctx)
-            else:
-                decode_slice_data_cavlc(br, ctx)
+            parse_slice_data(br, ctx)
         except NotImplementedError:
             raise               # out of scope: never concealed
         except Exception as e:

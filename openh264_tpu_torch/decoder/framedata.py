@@ -80,8 +80,8 @@ class FrameSymbols:
         self.coeffs_l = np.zeros((n, 16, 16), dtype=np.int32)
         self.coeffs_c = np.zeros((n, 2, 4, 16), dtype=np.int32)
         self.coeffs8 = None  # lazily allocated [n, 4, 64] for 8x8 transform MBs
-        # CABAC neighbour state, allocated by the CABAC slice parser
-        # (slice_dec_cabac.ensure_cabac_state): per MB the coded_block_flag
+        # CABAC neighbour state, allocated by the CABAC slice parsers
+        # (ensure_cabac_state): per MB the coded_block_flag
         # bits of I16 DC, Cb DC, Cr DC (bits 0..2); per list and 4x4 block
         # the mvd; per 4x4 block the direct / skip flag
         self.cbf_dc = None   # [n] int32
@@ -105,6 +105,13 @@ class FrameSymbols:
         # Defaults to all-True (producers like the encoder fill every MB);
         # the decoder clears it per picture and marks MBs as slices land.
         self.mb_correct = np.ones(n, dtype=bool)
+
+    def ensure_cabac_state(self):
+        if self.cbf_dc is None:
+            self.cbf_dc = np.zeros(self.n_mb, dtype=np.int32)
+            h4, w4 = self.mb_h * 4, self.mb_w * 4
+            self.gmvd = np.zeros((2, h4, w4, 2), dtype=np.int32)
+            self.gdirect = np.zeros((h4, w4), dtype=np.int8)
 
     def ensure_coeffs8(self):
         if self.coeffs8 is None:

@@ -25,7 +25,7 @@ BI becomes its plain, unweighted L0 prediction.
 
 Intra MBs (sequential neighbour dependencies) run afterwards in raster
 order on host copies of the planes, which move to the host once and
-back once: in host C (native.recon_intra_mbs_native), I8x8 MBs
+back once: in host C (cbind.recon_intra_mbs_native), I8x8 MBs
 included. Under fs.openh264_compat a picture with an I8x8 MB sends all
 its intra MBs to Python (recon_oracle.recon_intra_mb), as the JAX
 package routes them (recon_batch.py:221-228,
@@ -45,6 +45,7 @@ import torch
 from ..ops.recon_torch import mc_chroma, mc_luma
 from ..ops.transform import idct4x4_add, idct8x8_add
 from ..utils import trace
+from . import cbind
 from .framedata import (INTRA_CLASSES, MB_B16x8, MB_B8x16, MB_I8x8,
                         FrameSymbols)
 from .recon_oracle import HostPlanes, ReconState, recon_intra_mb
@@ -160,7 +161,6 @@ def _recon_intra(st: ReconState, fs: FrameSymbols, intra_list,
     planes: one download (none when nothing was predicted on the
     device), the host C recon, or the Python one (`python`: a picture
     with I8x8 MBs under openh264_compat), one upload."""
-    from ..native import recon_intra_mbs_native
     if device.type == "cpu":          # the host code writes the tensors
         host = [p.numpy() for p in (st.y, st.u, st.v)]
     else:
@@ -174,7 +174,7 @@ def _recon_intra(st: ReconState, fs: FrameSymbols, intra_list,
         for idx in intra_list:
             recon_intra_mb(hp, int(idx), constrained)
     else:
-        recon_intra_mbs_native(*host, fs, intra_list, constrained)
+        cbind.recon_intra_mbs_native(*host, fs, intra_list, constrained)
     if device.type != "cpu":          # and one upload
         st.y, st.u, st.v = (torch.from_numpy(p).to(device) for p in host)
 

@@ -12,14 +12,12 @@ prediction, the spatial-direct cache over decoder/direct.py), the
 per-MB Python CAVLC parser of I, P and B slices with the 8x8 transform
 (I8x8, the inter transform_size_8x8_flag, the 8x8 residual as four
 interleaved 4x4 CAVLC blocks) and direct prediction (apply_direct), and
-the routing of decode_slice_data_cavlc, which sends I and P slices
-without FMO or the 8x8 transform to the host C parser
-(csrc/parse_cavlc.c through native.parse_cavlc_slice_native) and every
-other slice (B, FMO, a PPS with transform_8x8_mode) to the Python
-parser, as the JAX package does (native/__init__.py:189-203). The CABAC
-parser (slice_dec_cabac.py) shares the context and the per-MB helpers.
-check_scope refuses SP and SI slices with NotImplementedError, which
-the decoder lets through and never conceals.
+the decoder's one routing rule, c_parses: which slices the host C
+parsers (decoder/cbind.py) take and which the per-MB Python parsers of
+both entropy modes take. The CABAC parser (slice_dec_cabac.py) shares
+the context and the per-MB helpers. check_scope refuses SP and SI
+slices with NotImplementedError, which the decoder lets through and
+never conceals.
 """
 
 from __future__ import annotations
@@ -160,6 +158,20 @@ def check_scope(sh: SliceHeader) -> None:
         raise NotImplementedError(
             f"slice type {sh.slice_type} (SP/SI): the decoder takes I, P "
             "and B slices")
+
+
+def c_parses(sh: SliceHeader) -> bool:
+    """Whether the host C parses slice `sh` (decoder/cbind.py), the
+    decoder's one routing rule: every CABAC I, P and B slice without FMO
+    (csrc/parse_cabac.c), and every CAVLC I and P slice without FMO
+    under a PPS without transform_8x8_mode (csrc/parse_cavlc.c), as the
+    JAX package routes CAVLC (native/__init__.py:189-203). The per-MB
+    Python parsers take the rest; SP and SI slices are check_scope's."""
+    if sh.slice_type not in (I_SLICE, P_SLICE, B_SLICE) or \
+            sh.pps.num_slice_groups > 1:
+        return False
+    return bool(sh.pps.entropy_coding_mode) or not (
+        sh.slice_type == B_SLICE or sh.pps.transform_8x8_mode)
 
 
 def decode_i_mb_cavlc(br: BitReader, ctx: SliceDecodeContext, mb_idx: int,
@@ -755,16 +767,3 @@ def decode_slice_mbs_cavlc(br: BitReader, ctx: SliceDecodeContext) -> int:
         fs.mb_correct[mb_idx] = True
         mb_idx = nxt(mb_idx)
     return mb_idx
-
-
-def decode_slice_data_cavlc(br: BitReader, ctx: SliceDecodeContext) -> int:
-    """Parse all MBs of a CAVLC slice. Returns index one past the last MB.
-    I and P slices without FMO or the 8x8 transform go to the host C, the
-    others (B, FMO, transform_8x8_mode) to the Python parser."""
-    from ..native import parse_cavlc_slice_native
-    sh = ctx.sh
-    check_scope(sh)
-    if sh.slice_type == B_SLICE or sh.pps.num_slice_groups > 1 or \
-            sh.pps.transform_8x8_mode:
-        return decode_slice_mbs_cavlc(br, ctx)
-    return parse_cavlc_slice_native(br, ctx)

@@ -9,12 +9,13 @@ with the 8x8 transform (transform_size_8x8_flag, I8x8, the LUMA_8x8
 residual blocks) and B direct prediction through slice_dec.apply_direct
 (SP/SI slices are refused by slice_dec.check_scope).
 
-decode_slice_data_cabac sends every slice without FMO, I, P or B, with
-or without the 8x8 transform, whole to the host C (csrc/parse_cabac.c
-through native.parse_cabac_slice_native), which mirrors this module's
-per-MB parser array for array, direct prediction included; FMO slices
-go to the per-MB parser here (decode_slice_mbs_cabac), the general path
-and the twin the tests hold the C against. There the syntax elements
+The decoder's one routing rule (slice_dec.c_parses) sends every CABAC
+slice without FMO, I, P or B, with or without the 8x8 transform, whole
+to the host C (csrc/parse_cabac.c through
+cbind.parse_cabac_slice_native), which mirrors this module's per-MB
+parser array for array, direct prediction included; FMO slices go to
+the per-MB parser here (decode_slice_mbs_cabac), the general path and
+the twin the tests hold the C against. There the syntax elements
 run per bin in Python on CabacEngine, and every residual block's bins
 in host C (csrc/cabac_residual.c) over the same engine state and
 context arrays, so the two interleave within a slice. The JAX module
@@ -30,6 +31,7 @@ import numpy as np
 from ..tables import CHROMA_QP_TABLE, ZIGZAG_4x4, ZIGZAG_8x8
 from ..tables.cavlc import CBP_I16x16
 from ..utils import trace
+from . import cbind
 from .cabac import (CabacContexts, CabacEngine, CTX_B_SKIP, CTX_B_SUBMB_TYPE,
                     CTX_CBF, CTX_CBP, CTX_CIPR, CTX_DELTA_QP, CTX_IPR,
                     CTX_MAP, CTX_MAP_8x8, CTX_LAST, CTX_LAST_8x8, CTX_MVD,
@@ -48,16 +50,8 @@ from .framedata import (MB_I4x4, MB_I16x16, MB_IPCM, MB_I8x8, MB_P16x16,
 from .slice_dec import (SliceDecodeContext, _mb_common_init,
                         _finish_inter_mb, _mark_intra_in_grids, apply_direct,
                         _B_TWOPART_MODES, _B_SUB, _P_SUB_SHAPES,
-                        _LUMA_DC_SCAN, check_scope)
+                        _LUMA_DC_SCAN)
 from .slicehdr import B_SLICE, I_SLICE
-
-
-def ensure_cabac_state(fs):
-    if fs.cbf_dc is None:
-        fs.cbf_dc = np.zeros(fs.n_mb, dtype=np.int32)  # bits 0..2: I16DC,DCU,DCV
-        h4, w4 = fs.mb_h * 4, fs.mb_w * 4
-        fs.gmvd = np.zeros((2, h4, w4, 2), dtype=np.int32)
-        fs.gdirect = np.zeros((h4, w4), dtype=np.int8)
 
 
 # the residual decoder's engine tables (cabac_residual.c)
@@ -96,11 +90,10 @@ class CabacResidualC:
     an engine re-created after IPCM reads the same rbsp."""
 
     def __init__(self, rbsp: bytes, bctx: CabacContexts):
-        from ..native import cabac_residual_lib
         self._data = np.frombuffer(rbsp, np.uint8)
         self._st = np.zeros(3, np.int64)
         self._sig = np.zeros(64, np.int32)
-        self._fn = cabac_residual_lib().cabac_residual
+        self._fn = cbind.cabac_residual_lib().cabac_residual
         self._pre = (self._data.ctypes.data, 8 * len(rbsp),
                      self._st.ctypes.data, bctx.state.ctypes.data,
                      bctx.mps.ctypes.data, _CRES_LPS.ctypes.data,
@@ -129,7 +122,7 @@ class CabacSliceDecoder:
         self.ctx = ctx
         self.fs = ctx.fs
         self.sh = ctx.sh
-        ensure_cabac_state(self.fs)
+        self.fs.ensure_cabac_state()
         self.rbsp = rbsp
         qp = np.clip(ctx.qp, 0, 51)
         self.bctx = CabacContexts(self.sh.slice_type == I_SLICE,
@@ -960,17 +953,3 @@ def decode_slice_mbs_cabac(rbsp: bytes, bitpos: int,
     finally:
         trace.count("cabac_python_mbs", done)
     return mb_idx, dec.eng.pos
-
-
-def decode_slice_data_cabac(rbsp: bytes, bitpos: int,
-                            ctx: SliceDecodeContext) -> int:
-    """Parse all MBs of a CABAC slice from bit `bitpos` of its RBSP (the
-    end of its header). Returns one past the last MB. I, P and B slices,
-    with or without the 8x8 transform, go to the host C
-    (native.parse_cabac_slice_native); FMO slices, which no conforming
-    CABAC stream has, to the Python parser."""
-    from ..native import parse_cabac_slice_native
-    check_scope(ctx.sh)
-    if ctx.sh.pps.num_slice_groups > 1:
-        return decode_slice_mbs_cabac(rbsp, bitpos, ctx)[0]
-    return parse_cabac_slice_native(rbsp, bitpos, ctx)[0]

@@ -14,7 +14,7 @@ boolean-masking yields the exact concatenation order.
 
 Copied from openh264_tpu/encoder/cavlc_vec.py (ue/se codes, residual
 tokens, MVP, write_p_slice_tokens, assemble_rbsp). assemble_rbsp always
-packs with the host C bitpack (native.py); the numpy bit packer that the
+packs with the host C bitpack (cbind.py); the numpy bit packer that the
 JAX package falls back to is not copied.
 """
 
@@ -22,10 +22,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..native import bitpack
 from ..tables import ZIGZAG_4x4, ZSCAN_TO_RASTER
 from ..tables.cavlc import (CBP_INTER_INV, COEFF_TOKEN, RUN_BEFORE,
                             TOTAL_ZEROS, TOTAL_ZEROS_CHROMA_DC)
+from .cbind import bitpack
 
 # residual-block slot layout: 1 coeff_token + 3 t1 signs + 16 levels
 # (prefix+suffix fused, <=28 bits) + 1 total_zeros + 14 run_before

@@ -9,7 +9,7 @@ stay there. In-loop deblocking runs through the port's deblock kernel
 (deblock_host). Only the symbol arrays that the host writers read are
 fetched: the host writes the headers and the slice bodies from them,
 per MB or vectorised (cavlc_vec), as the JAX encoder does. I frames
-with enable_i4x4 run the I16x16-vs-I4x4 decision in host C (native.py).
+with enable_i4x4 run the I16x16-vs-I4x4 decision in host C (cbind.py).
 With entropy_cabac the slice bodies are written per bin by the CABAC
 slice writer (cabac_enc.py), on the one-slice and fixed-slice paths;
 the profile rises to Main (77) and I frames take the I16 wavefront.
@@ -34,6 +34,7 @@ from ..tables.cavlc import CBP_INTER_INV, CBP_INTRA_INV
 from ..utils import trace
 from . import core_torch
 from .cabac_enc import CabacSliceWriter
+from .cbind import enc_intra_frame_native
 from .cavlc_enc import write_residual_block
 from .cavlc_vec import assemble_rbsp, p_skip_mask, write_p_slice_tokens
 from .config import EncoderConfig
@@ -710,7 +711,6 @@ class H264Encoder:
         RBSP."""
         cfg = self.cfg
         if cfg.enable_i4x4 and not cfg.entropy_cabac:
-            from ..native import enc_intra_frame_native
             with trace.span("encoder.i4x4"):
                 out = enc_intra_frame_native(
                     *host, self.qp, self.qp_c,

@@ -308,10 +308,11 @@ def test_cuda_machine_builds_host_c():
     machine's host compiler and runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from openh264_tpu_torch import _build, native
+    from openh264_tpu_torch import _build
+    from openh264_tpu_torch.encoder import cbind
     _build.build("host_native")
     out = np.zeros(8, np.uint8)
-    assert native.bitpack(np.array([5, 1], np.uint32),
+    assert cbind.bitpack(np.array([5, 1], np.uint32),
                           np.array([3, 1], np.uint8), out, 0) == 4
     assert out[0] == 0b10110000
 

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-import openh264_tpu_torch.native as native
+import openh264_tpu_torch.decoder.cbind as cbind
 from openh264_tpu.decoder import H264Decoder as JaxDecoder
 from openh264_tpu.decoder import fmo as jfmo
 from openh264_tpu_torch.bitstream import (BitWriter, NAL_IDR, NAL_PPS,
@@ -50,7 +50,7 @@ def test_python_parser_equals_c(name, monkeypatch):
     bs = _stream(name)
     want, c_syms = port_symbols(bs, monkeypatch)
     with monkeypatch.context() as m:
-        m.setattr(native, "parse_cavlc_slice_native", decode_slice_mbs_cavlc)
+        m.setattr(cbind, "parse_cavlc_slice_native", decode_slice_mbs_cavlc)
         got, py_syms = port_symbols(bs, monkeypatch)
     same_symbols(py_syms, c_syms, FS_FIELDS)
     _equal(got, want)
@@ -190,10 +190,10 @@ def test_c_parser_never_takes_fmo(monkeypatch):
     NotImplementedError, which the decoder does not conceal: were the
     routing to send FMO slices there, decoding would stop in every
     error-concealment mode instead of hiding them."""
-    import openh264_tpu_torch.decoder.slice_dec as slice_dec
+    import openh264_tpu_torch.decoder.decoder as decoder
     bs, _ = _fmo_stream(96, 64, 1)
-    monkeypatch.setattr(slice_dec, "decode_slice_mbs_cavlc",
-                        native.parse_cavlc_slice_native)
+    monkeypatch.setattr(decoder, "decode_slice_mbs_cavlc",
+                        cbind.parse_cavlc_slice_native)
     for ec in (0, 2, 6):
         with pytest.raises(NotImplementedError):
             H264Decoder(device="cpu", ec_mode=ec).decode_annexb(bs)

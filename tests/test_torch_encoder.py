@@ -87,7 +87,7 @@ def test_constqp_ippp_idr_interval():
 def test_i4x4_host_c():
     """enable_i4x4: the IDR's I16x16-vs-I4x4 decision runs in host C;
     the textured MBs pick I4x4, a flat corner I16x16."""
-    from openh264_tpu_torch.native import enc_intra_frame_native
+    from openh264_tpu_torch.encoder.cbind import enc_intra_frame_native
     f = _frames(3, seed=1)
     for y, _u, _v in f:
         y[:32, :32] = 120

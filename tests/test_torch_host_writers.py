@@ -14,11 +14,12 @@ from openh264_tpu.decoder.mvpred import MvContext as JMvc
 from openh264_tpu.encoder import cavlc_enc as jce
 from openh264_tpu.encoder import cavlc_vec as jcv
 from openh264_tpu.native import enc_intra_frame_native as j_intra
-from openh264_tpu_torch import _build, native
+from openh264_tpu_torch import _build
 from openh264_tpu_torch.bitstream import BitWriter as TBW
 from openh264_tpu_torch.decoder.framedata import FrameSymbols as TFS
 from openh264_tpu_torch.decoder.mvpred import MvContext as TMvc
 from openh264_tpu_torch.encoder import cavlc_enc as tce
+from openh264_tpu_torch.encoder import cbind
 from openh264_tpu_torch.encoder import cavlc_vec as tcv
 
 
@@ -100,7 +101,7 @@ def test_bitpack_appends_msb_first():
     vals = rng.integers(0, 1 << 32, 500, dtype=np.uint64).astype(np.uint32)
     out = np.zeros(2200, np.uint8)
     out[0] = 0b10100000
-    pos = native.bitpack(vals, lens, out, 3)
+    pos = cbind.bitpack(vals, lens, out, 3)
     bits = "101" + "".join(format(int(v) & ((1 << int(n)) - 1), f"0{n}b")
                            if n else "" for v, n in zip(vals, lens))
     assert pos == len(bits)
@@ -159,7 +160,7 @@ def test_enc_intra_frame_native(seed, qp):
     qpc = int(CHROMA_QP_TABLE[qp])
     lam = int(QP_COST_TABLE[qp])
     want = j_intra(y, u, v, qp, qpc, lam)
-    got = native.enc_intra_frame_native(y, u, v, qp, qpc, lam)
+    got = cbind.enc_intra_frame_native(y, u, v, qp, qpc, lam)
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -11,7 +11,7 @@ byte (tolerance 0), on the CPU:
 - decoder/recon_oracle.py::recon_intra_mb, the per-MB Python intra
   recon of a picture with I8x8 MBs, against the JAX recon_oracle on
   seeded FrameSymbols of I8x8, I4x4, I16x16 and IPCM MBs in two slices;
-- the host C intra recon (native.recon_intra_mbs_native), which takes
+- the host C intra recon (cbind.recon_intra_mbs_native), which takes
   I8x8 MBs too, against that Python recon on the same symbols, every
   8x8 mode at every neighbour pattern of a picture's and a slice's
   edges.
@@ -156,7 +156,7 @@ def test_recon_intra_mb_matches_jax(seed, constrained):
 def test_native_intra_recon_with_i8x8_matches_python(seed, constrained):
     """The host C recon of every intra MB, I8x8 included, equals the
     per-MB Python recon, into the same seeded planes."""
-    from openh264_tpu_torch.native import recon_intra_mbs_native
+    from openh264_tpu_torch.decoder.cbind import recon_intra_mbs_native
     rng = np.random.default_rng(200 + seed)
     planes = [rng.integers(0, 256, s, np.uint8)
               for s in ((64, 96), (32, 48), (32, 48))]

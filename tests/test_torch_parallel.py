@@ -14,7 +14,7 @@ import pytest
 from openh264_tpu.decoder import H264Decoder
 from openh264_tpu.encoder.encoder import EncoderConfig as JCfg
 from openh264_tpu.parallel.simulcast import SimulcastEncoder as JSim
-from openh264_tpu_torch import _build, native
+from openh264_tpu_torch import _build
 from openh264_tpu_torch.encoder.config import EncoderConfig as TCfg
 from openh264_tpu_torch.parallel import SimulcastEncoder
 
@@ -101,7 +101,7 @@ def test_native_loads_from_threads(tmp_path, monkeypatch):
         assert len(libs) == 6 and all(lib is libs[0] for lib in libs)
         assert len(calls) == 1
         assert [p.suffix for p in tmp_path.iterdir()] == [".so"]
-        lib = native._lib.__wrapped__()     # declares the C signatures
+        lib = _build.bind("host_native")   # the signatures declared
         assert lib is libs[0]
         vals, lens = np.array([5], np.uint32), np.array([3], np.uint8)
         out = np.zeros(4, np.uint8)

@@ -1,5 +1,5 @@
 """Port parity: the decoder's host C CABAC slice parser
-(csrc/parse_cabac.c through native.parse_cabac_slice_native) against
+(csrc/parse_cabac.c through cbind.parse_cabac_slice_native) against
 its Python twin (slice_dec_cabac.decode_slice_mbs_cabac), and the
 routing between them.
 
@@ -28,7 +28,8 @@ routing between them.
   tests' b_stream is CAVLC: the steered streams are its CABAC
   counterpart.)
 - Routing: every slice without FMO takes the C, B and 8x8 included; FMO
-  takes the Python parser. The counters cabac_c_mbs, cabac_python_mbs
+  takes the Python parser. The routing rule (slice_dec.c_parses) says
+  so of each slice's header, and the counters cabac_c_mbs, cabac_python_mbs
   and cabac_bins on each decoder.parse span say which, cabac_bins equals
   the bins the Python twin decodes, and nothing is recorded with the
   recorder off.
@@ -42,8 +43,8 @@ import numpy as np
 import pytest
 import torch
 
+import openh264_tpu_torch.decoder.cbind as cbind
 import openh264_tpu_torch.decoder.slice_dec_cabac as sdc
-import openh264_tpu_torch.native as native
 from openh264_tpu_torch.bitstream import (BitWriter, NAL_IDR, NAL_PPS,
                                           NAL_SLICE, make_annexb_nal,
                                           split_annexb)
@@ -51,6 +52,7 @@ from openh264_tpu_torch.decoder import H264Decoder
 from openh264_tpu_torch.decoder.cabac import CTX_MVD, CabacEngine
 from openh264_tpu_torch.decoder.framedata import MB_B16x16
 from openh264_tpu_torch.decoder.params import parse_pps
+from openh264_tpu_torch.decoder.slice_dec import c_parses
 from openh264_tpu_torch.encoder.cabac_enc import CabacSliceWriter
 from openh264_tpu_torch.encoder.config import EncoderConfig
 from openh264_tpu_torch.encoder.encoder import H264Encoder
@@ -60,7 +62,7 @@ from openh264_tpu_torch.utils import trace
 import test_torch_decoder_cabac as tcabac
 from test_torch_decoder import _equal
 from test_torch_decoder_b import _cabac_ip
-from test_torch_streams import (BinChooser, _frames, _write_pps,
+from test_torch_streams import (BinChooser, _frames, _headers, _write_pps,
                                 cabac_prefix, steered_cabac_stream,
                                 with_pps, write_slice_header_b)
 
@@ -312,7 +314,7 @@ def _parse_log(bs, monkeypatch, parse, compat=False):
         finally:
             log.append((err, res, 8 * len(rbsp), _snapshot(ctx.fs)))
     with monkeypatch.context() as m:
-        m.setattr(native, "parse_cabac_slice_native", record)
+        m.setattr(cbind, "parse_cabac_slice_native", record)
         frames = H264Decoder(device="cpu", ec_mode=2,
                              openh264_compat=compat).decode_annexb(bs)
     return frames, log
@@ -336,7 +338,7 @@ def _same_snapshot(got, want, where):
 @pytest.mark.parametrize("name", list(PARITY))
 def test_c_parser_equals_python_twin(name, monkeypatch):
     bs, compat = PARITY[name](), name in COMPAT
-    got, c_log = _parse_log(bs, monkeypatch, native.parse_cabac_slice_native,
+    got, c_log = _parse_log(bs, monkeypatch, cbind.parse_cabac_slice_native,
                             compat)
     want, py_log = _parse_log(bs, monkeypatch, sdc.decode_slice_mbs_cabac,
                               compat)
@@ -429,6 +431,9 @@ def test_routing_and_counters(name, recorder_off):
     spans = _parse_counters(bs)
     assert spans
     n_c = len(spans) if n_c is None else n_c
+    # the one routing rule says the same of every slice
+    assert [c_parses(sh) for sh in _headers(bs)] == \
+        [k < n_c for k in range(len(spans))]
     for k, (mbs, c) in enumerate(spans):
         if k < n_c:
             assert set(c) == {"cabac_c_mbs", "cabac_bins"}, (k, c)
@@ -485,6 +490,6 @@ def test_cabac_bins_equal_python_twin_bins(name, recorder_off, monkeypatch):
         m.setattr(sdc.CabacSliceDecoder, "residual_levels",
                   lambda self, prop: sdc.residual_levels_plain(
                       self.eng, self.bctx, prop))
-        m.setattr(native, "parse_cabac_slice_native", counted)
+        m.setattr(cbind, "parse_cabac_slice_native", counted)
         H264Decoder(device="cpu").decode_annexb(bs)
     assert c_bins == py_bins and min(c_bins) > 0

@@ -758,7 +758,7 @@ def steer_picture(dec, headers, seed, chooser=None):
     decodes the picture those bins make, so that it can steer the next
     one."""
     import openh264_tpu_torch.decoder.slice_dec_cabac as sdc
-    import openh264_tpu_torch.native as native
+    import openh264_tpu_torch.decoder.cbind as cbind
     rng = np.random.default_rng(seed)
     ends = [end for *_x, end in headers]
     choosers, pending = [], []
@@ -776,15 +776,15 @@ def steer_picture(dec, headers, seed, chooser=None):
     def plain_levels(self, prop):
         return sdc.residual_levels_plain(self.eng, self.bctx, prop)
     saved = (sdc.CabacEngine, sdc.CabacSliceDecoder.residual_levels,
-             native.parse_cabac_slice_native)
+             cbind.parse_cabac_slice_native)
     sdc.CabacEngine = engine
     sdc.CabacSliceDecoder.residual_levels = plain_levels
-    native.parse_cabac_slice_native = sdc.decode_slice_mbs_cabac
+    cbind.parse_cabac_slice_native = sdc.decode_slice_mbs_cabac
     try:
         dec._decode_picture(pending)
     finally:
         (sdc.CabacEngine, sdc.CabacSliceDecoder.residual_levels,
-         native.parse_cabac_slice_native) = saved
+         cbind.parse_cabac_slice_native) = saved
     out = []
     for (ref_idc, typ, w, _end), (_n, sh, _br), ch in zip(headers, pending,
                                                           choosers):
